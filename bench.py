@@ -1,128 +1,58 @@
 #!/usr/bin/env python3
-"""Headline benchmark: CLV updates/sec/chip on the flagship configuration.
+"""Full-tree evaluation throughput of the flagship configuration.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
+64 taxa x 262 144 sites x 4 Γ categories, DNA, GTR, per-site scaling,
+float32, nibble-packed pattern tips: ``make_score(tip_encoding="chars")``,
+the tree-search scoring entry point, on JAX's default backend.
 
-Metric definition (BASELINE.md): sites × rate_cats × inner-nodes updated
-per second by a full-tree evaluation (`pll_update_partials` +
-`pll_compute_edge_loglikelihood` throughput).  The measured path is the
-fused edge-score Pallas kernel with nibble-packed pattern tips
-(tip_encoding="chars": 0.5 byte/tip/site decoded in VMEM, inner CLVs never
-leave VMEM, one partial sum per 128-site block to HBM) — the tree-search
-fast path.
-
-The baseline denominator is the reference's AVX2 single-core path measured
-on this machine at the SAME configuration (64 taxa × 262 144 sites × 4
-Γ-categories, DNA, per-site scaling, float64 — the reference's only
-precision): 56.2e6 site-rate-node updates/s, 1618 ms per full-tree eval
-(scripts/bench_reference.py).
-
-Timing methodology: on this platform `block_until_ready` does not reliably
-fence device work, so each measurement jits a `lax.scan` chain of K
-data-dependent evaluations ending in a scalar readback.  Two chain lengths
-K1 < K2 are timed in INTERLEAVED pairs and each pair yields one estimate
-dt_i = (tK2_i − tK1_i)/(K2 − K1), which cancels dispatch + readback
-latency; the headline is the MEDIAN of the pair estimates (robust to
-platform drift between trials — the round-3 8% headline wobble came from
-best-of-5 on a single short chain) and the (min, p25, p75, max) band is
-printed alongside so run-to-run variance is visible instead of silently
-moving the headline.
+Exits non-zero without a GPU.  Prints the device, the milliseconds per
+evaluation (median over timed calls that each end in
+``block_until_ready``, after warm-up) and, as the last line, one JSON
+object with the rate in site-rate-node CLV updates per second.  No
+baseline ratio: the rate is this program's own, measured here.
 """
 
 import json
-import statistics
 import sys
-import time
-
-# reference AVX2, 1 core, this machine, SAME config (BASELINE.md round 2)
-BASELINE_CLV_UPDATES_PER_SEC = 56.2e6
 
 TIPS = 64
 SITES = 262144
 RATE_CATS = 4
 STATES = 4
-K1, K2 = 2, 26   # chain lengths; one estimate per (K2 − K1) = 24 evals
-PAIRS = 16       # interleaved trial pairs; headline = median of pairs
+REPS = 20
 
 
 def main() -> None:
-    import numpy as np
-
     import jax
-    import jax.numpy as jnp
 
+    if jax.default_backend() != "gpu":
+        sys.exit(f"bench.py measures the GPU; JAX's default backend is "
+                 f"{jax.default_backend()!r}")
+    import libpll_tpu  # noqa: F401  (x64, matmul precision)
     from __graft_entry__ import _build_flagship
     from libpll_tpu.engine import evaluate as ev
-    from libpll_tpu.ops import clv_pallas as cp
+    from libpll_tpu.ops.tipcodes import pack_tipchars
+    from libpll_tpu.utils.profiling import time_jitted
 
-    topo, model, clv, scalers = _build_flagship(TIPS, SITES,
-                                                rate_cats=RATE_CATS)
-    clv_np = np.asarray(clv[:TIPS])
-    masks = ((clv_np[:, 0] > 0).astype(np.uint32)
-             << np.arange(STATES, dtype=np.uint32)[None, :, None]).sum(1)
-    score = ev.make_score(topo, RATE_CATS, STATES, impl="vpu",
-                          tip_encoding="chars")
-    tp = cp.pack_tipchars(masks)
+    topo, model, masks, _ = _build_flagship(TIPS, SITES, rate_cats=RATE_CATS,
+                                            tip_masks=True)
+    score = jax.jit(ev.make_score(topo, RATE_CATS, STATES,
+                                  tip_encoding="chars"))
+    tp = pack_tipchars(masks)
+    logl = float(score(model, tp))
+    dt = time_jitted(score, model, tp, reps=REPS)
 
-    def chain(k):
-        @jax.jit
-        def f(model, tp):
-            def body(carry, _):
-                total, bl = carry
-                m = dict(model)
-                m["branch_lengths"] = bl
-                s = score(m, tp)
-                # serialize iterations through the branch lengths
-                bl0 = model["branch_lengths"]
-                return (total + s.astype(jnp.float32),
-                        bl0 + (s * 1e-30).astype(bl0.dtype)), None
-
-            init = (jnp.zeros((), jnp.float32), model["branch_lengths"])
-            (total, _), _ = jax.lax.scan(body, init, None, length=k)
-            return total
-        return f
-
-    f1, f2 = chain(K1), chain(K2)
-    # compile + warm both
-    float(f1(model, tp))
-    float(f2(model, tp))
-
-    def once(f):
-        t0 = time.perf_counter()
-        float(f(model, tp))
-        return time.perf_counter() - t0
-
-    dts = []
-    for i in range(PAIRS):
-        # alternate order within pairs so slow platform drift cancels
-        if i % 2 == 0:
-            a = once(f1)
-            b = once(f2)
-        else:
-            b = once(f2)
-            a = once(f1)
-        dts.append((b - a) / (K2 - K1))
-    dts.sort()
-    dt = statistics.median(dts)
-    q = statistics.quantiles(dts, n=4)
-
-    n_ops = TIPS - 2
-    updates = n_ops * SITES * RATE_CATS
-    rate = updates / dt
+    dev = jax.devices()[0]
+    updates = (TIPS - 2) * SITES * RATE_CATS
+    print(f"# {dev.platform} {dev.device_kind}: {dt * 1e3:.3f} ms per "
+          f"full-tree evaluation, logL {logl:.3f}", file=sys.stderr)
     print(json.dumps({
-        "metric": "CLV updates/sec/chip",
-        "value": rate,
+        "metric": "CLV updates/sec",
+        "value": updates / dt,
         "unit": "site-rate-node updates/s",
-        "vs_baseline": rate / BASELINE_CLV_UPDATES_PER_SEC,
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }))
-    print(f"# fused pattern-tip score: {dt*1e3:.2f} ms/full-tree eval for "
-          f"{n_ops} ops x {SITES} sites x {RATE_CATS} rates "
-          f"({TIPS} taxa, float32 vpu kernel, nibble tips); reference "
-          f"AVX2 1-core same config: 1618 ms", file=sys.stderr)
-    print(f"# band over {PAIRS} interleaved pairs (ms/eval): "
-          f"min {dts[0]*1e3:.2f}  p25 {q[0]*1e3:.2f}  "
-          f"median {dt*1e3:.2f}  p75 {q[2]*1e3:.2f}  max {dts[-1]*1e3:.2f}",
-          file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Shared setup for the example scripts: a small DNA alignment + tree.
 
 Examples default to the CPU backend so they run anywhere; set
-LIBPLL_EXAMPLES_TPU=1 to use the environment's accelerator.
+LIBPLL_EXAMPLES_DEVICE=1 to use JAX's default backend (the GPU).
 """
 
 import os
@@ -10,7 +10,7 @@ import sys
 # run from anywhere without installing the package
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if not os.environ.get("LIBPLL_EXAMPLES_TPU"):
+if not os.environ.get("LIBPLL_EXAMPLES_DEVICE"):
     import jax
     jax.config.update("jax_platforms", "cpu")
 

@@ -1,11 +1,9 @@
-"""The TPU fast paths: fused Pallas forward, tree-search scoring, and the
-Newton training step (no reference equivalent — this is the rebuild's
-TPU-first API).
+"""The fast paths: forward from tip CLVs, tree-search scoring (also from
+nibble-packed tips) and the device-resident Newton step, each one
+compiled program (no reference equivalent).
 
-Runs in Pallas interpreter mode on CPU by default; on a real TPU
-(LIBPLL_EXAMPLES_TPU=1) the kernels compile natively."""
-
-import os
+Runs on JAX's default backend: the GPU where there is one (the float32
+score then runs in the GPU score kernel), the CPU otherwise."""
 
 from _common import dna_partition
 
@@ -18,10 +16,7 @@ from libpll_tpu.engine.evaluate import (make_forward_fused, make_score,
                                         topology_from_tree)
 from libpll_tpu.models.gamma import compute_gamma_cats
 from libpll_tpu.models.gtr import eigen_decompose
-from libpll_tpu.ops import clv_pallas as cp
-from libpll_tpu.tree import utree as ut
-
-INTERPRET = not bool(os.environ.get("LIBPLL_EXAMPLES_TPU"))
+from libpll_tpu.ops.tipcodes import pack_tipchars
 
 
 def main():
@@ -48,31 +43,23 @@ def main():
         "pattern_weights": jnp.ones((sites,), dtype),
         "invariant": jnp.full((sites,), -1, jnp.int32),
     }
-    # pad sites to the kernel's 128-lane block
-    pad = (-sites) % 128
-    if pad:
-        sites_p = sites + pad
-        topo = topo._replace(sites=sites_p)
-        model["pattern_weights"] = jnp.concatenate(
-            [model["pattern_weights"], jnp.zeros((pad,), dtype)])
-        model["invariant"] = jnp.concatenate(
-            [model["invariant"], jnp.full((pad,), -1, jnp.int32)])
-    tips_clv = jnp.concatenate(
-        [jnp.asarray(part.clv[:part.tips], dtype),
-         jnp.ones((part.tips, rate_cats, 4, pad), dtype)], axis=-1)
+    tip_clv = jnp.asarray(part.clv[:part.tips], dtype)
 
-    tp = cp.pack_tips(tips_clv, "mxu")
-    fwd = make_forward_fused(topo, rate_cats, 4, impl="mxu",
-                             interpret=INTERPRET)
-    logl, _, _, _ = fwd(model, tp)
-    print(f"fused forward logL: {float(logl):.4f}")
+    fwd = jax.jit(make_forward_fused(topo, rate_cats, 4))
+    logl, _, _, _ = fwd(model, tip_clv)
+    print(f"forward logL: {float(logl):.4f}")
 
-    score = make_score(topo, rate_cats, 4, impl="mxu", interpret=INTERPRET)
-    print(f"fused edge-score logL: {float(score(model, tp)):.4f}")
+    score = jax.jit(make_score(topo, rate_cats, 4))
+    print(f"score logL: {float(score(model, tip_clv)):.4f}")
 
-    step = make_train_step_fused(topo, rate_cats, 4, impl="mxu",
-                                 interpret=INTERPRET)
-    logl, t_star = step(model, tp)
+    chars = pack_tipchars(part._tip_masks)
+    score_chars = jax.jit(make_score(topo, rate_cats, 4,
+                                     tip_encoding="chars"))
+    print(f"score logL from nibble tips: "
+          f"{float(score_chars(model, chars)):.4f}")
+
+    step = jax.jit(make_train_step_fused(topo, rate_cats, 4))
+    logl, t_star = step(model, tip_clv)
     print(f"Newton step: logL={float(logl):.4f}  t*={float(t_star):.6f}")
 
 

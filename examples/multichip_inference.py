@@ -4,13 +4,14 @@ The same `infer_tree` call as examples/infer_ml_tree.py, with a
 `jax.sharding.Mesh`: the stepwise build shards its Fitch word axis (one
 integer psum per insertion), the partition shards its site axis, and the
 SPR scorer / Newton sweep programs partition automatically under GSPMD —
-one psum per logL fold rides the ICI.  Results are identical to the
+one psum per logL fold crosses the devices.  Results are identical to the
 single-device run (tests/test_infer.py asserts exact agreement).
 
 Run on CPU with a virtual mesh:
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     JAX_PLATFORMS=cpu python examples/multichip_inference.py
-On a real TPU pod slice the same code shards across chips.
+On a host with several GPUs the same code shards across them
+(chip_smoke.py --four runs it on four).
 """
 
 import os

@@ -1,7 +1,7 @@
 """Fused device pipelines: P-matrices → CLV sweep → log-likelihood in one jit.
 
 The Partition class mirrors the reference's step-by-step API; this module is
-the TPU-first composition of the same kernels into single compiled programs
+the composition of the same kernels into single compiled programs
 (the host/device boundary of SURVEY §3.1): one call computes all transition
 matrices, executes the whole post-order schedule with the level-major
 throughput sweep (:mod:`libpll_tpu.ops.sweep`), and reduces the edge
@@ -15,6 +15,7 @@ are traced arguments, so branch-length or model changes never retrace.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import jax
@@ -23,8 +24,11 @@ import numpy as np
 
 from ..ops import derivatives as deriv_ops
 from ..ops import likelihood as lk_ops
+from ..ops import score_kernel as sk
 from ..ops.pmatrix import compute_pmatrices
 from ..ops.sweep import LevelSchedule, build_level_schedule, make_level_sweep
+from ..ops.tipcodes import (accurate_sum, check_tip_encoding, decode_tips,
+                            gap_code, pack_tipchars, pack_tipmasks)
 from ..utils.constants import SCALE_PER_RATE, SCALE_PER_SITE
 
 
@@ -96,7 +100,7 @@ def model_from_partition(partition, branches, params_indices=None,
     ``branches``: branch lengths in traversal order (from
     create_operations).  ``params_indices``: per-category rate-matrix
     indices (defaults to all zeros).  ``dtype`` defaults to float32 (the
-    fused kernels' fast path).
+    scoring fast path).
     """
     from ..models.gtr import eigen_decompose
 
@@ -135,15 +139,9 @@ def model_from_partition(partition, branches, params_indices=None,
     }
 
 
-def make_forward(topo: EvalTopology):
-    """Build ``forward(model, clv, scalers) -> (logl, persite)``.
-
-    model: dict of traced arrays — branch_lengths [B], rates [C],
-      prop_invar [M], params_indices [C] int32, eigenvals [M,S],
-      left/right [M,S,S], freqs_pc [C,S], prop_invar_pc [C],
-      rate_weights [C], pattern_weights [L], invariant [L] int32.
-    clv: [tips + n_inner, C, S, L] level-major; scalers [n_inner+1, (C,) L].
-    """
+def _forward_sweep(topo: EvalTopology):
+    """``f(model, clv, scalers) -> (logl, persite, clv, scalers)``: the
+    level sweep plus the edge log-likelihood, swept buffers returned."""
     sweep = make_level_sweep(topo.schedule, topo.scale_mode)
     per_rate = topo.scale_mode == SCALE_PER_RATE
     sp = topo.scaler_row(topo.parent_clv)
@@ -159,59 +157,59 @@ def make_forward(topo: EvalTopology):
             model["rate_weights"], model["pattern_weights"],
             model["prop_invar_pc"], model["invariant"], sites=topo.sites,
             per_rate=per_rate, asc_mode=topo.asc_mode)
+        return logl, persite, clv, scalers
+
+    return forward
+
+
+def make_forward(topo: EvalTopology):
+    """Build ``forward(model, clv, scalers) -> (logl, persite)``.
+
+    model: dict of traced arrays — branch_lengths [B], rates [C],
+      prop_invar [M], params_indices [C] int32, eigenvals [M,S],
+      left/right [M,S,S], freqs_pc [C,S], prop_invar_pc [C],
+      rate_weights [C], pattern_weights [L], invariant [L] int32.
+    clv: [tips + n_inner, C, S, L] level-major; scalers [n_inner+1, (C,) L].
+    """
+    fwd = _forward_sweep(topo)
+
+    def forward(model, clv, scalers):
+        logl, persite, _, _ = fwd(model, clv, scalers)
         return logl, persite
 
     return forward
 
 
-def make_forward_fused(topo: EvalTopology, rate_cats: int, states: int,
-                       impl: str = "auto", interpret: bool = False):
-    """Fused-Pallas forward: P-matrices → fused VMEM-resident pruning sweep
-    → edge log-likelihood, one compiled program (the TPU fast path).
+def _empty_state(topo: EvalTopology, tip_clv):
+    """Full level-major CLV buffer (tips first, inner rows zero) and zero
+    scalers for tip CLVs [tips, C, S, L]."""
+    _, c, s, length = tip_clv.shape
+    n_inner = topo.schedule.n_inner
+    clv = jnp.concatenate(
+        [tip_clv, jnp.zeros((n_inner, c, s, length), tip_clv.dtype)], axis=0)
+    sshape = ((n_inner + 1, c, length) if topo.scale_mode == SCALE_PER_RATE
+              else (n_inner + 1, length))
+    return clv, jnp.zeros(sshape, jnp.int32)
 
-    Returns ``forward(model, tips_packed) -> (logl, persite, inner, scalers)``
-    where ``tips_packed`` is :func:`libpll_tpu.ops.clv_pallas.pack_tips`
-    (plus :func:`~libpll_tpu.ops.clv_pallas.pad_sites_packed` when the
-    allocated site count is not a multiple of the kernel block) applied
-    once to the [tips, C, S, L] tip CLVs (tips are constant after setup).
-    ``inner`` is returned in the packed (padded) layout for reuse
-    (derivatives, partial re-evaluation).
 
-    Ascertainment-bias corrections are supported: the ``states``
-    pseudo-site columns ride the site axis through the fused sweep exactly
-    as in the XLA path; only the final fold (in XLA) distinguishes them.
-    The padding lanes are sliced off before the fold so Lewis/Felsenstein
-    base likelihoods see only the real asc columns.
+def make_forward_fused(topo: EvalTopology, rate_cats: int, states: int):
+    """Forward pass from tip CLVs alone, one compiled program.
+
+    Returns ``forward(model, tip_clv) -> (logl, persite, inner, scalers)``
+    with ``tip_clv`` [tips, C, S, L] (constant after setup), ``inner`` the
+    swept inner CLVs [n_inner, C, S, L] in level-major order (for
+    derivatives and partial re-evaluation) and ``scalers`` the level-major
+    scaler rows.  Ascertainment-bias pseudo-columns ride the site axis as
+    in :func:`make_forward` (L = sites + S).
     """
-    from ..ops import clv_pallas as cp
-
-    sweep = cp.make_fused_sweep(topo.schedule, topo.scale_mode, impl=impl,
-                                rate_cats=rate_cats, states=states,
-                                interpret=interpret)
-    if impl == "auto":
-        impl = "vpu" if states <= 8 else "mxu"
-    per_rate = topo.scale_mode == SCALE_PER_RATE
+    del rate_cats, states  # read from the tip CLVs' shape
+    fwd = _forward_sweep(topo)
     tips = topo.schedule.tips
-    sp = topo.scaler_row(topo.parent_clv)
-    sc = topo.scaler_row(topo.child_clv)
 
-    def row(tips_packed, inner, idx, L):
-        packed = (tips_packed[idx] if idx < tips else inner[idx - tips])
-        return cp.unpack_clv(packed[..., :L], rate_cats, states, impl)
-
-    def forward(model, tips_packed):
-        L = model["pattern_weights"].shape[-1]  # allocated (real) length
-        pmatrix = _pmatrices(model, topo, tips_packed.dtype)
-        inner, scalers = sweep(tips_packed, pmatrix)
-        logl, persite = lk_ops.edge_loglikelihood(
-            row(tips_packed, inner, topo.parent_clv, L),
-            row(tips_packed, inner, topo.child_clv, L),
-            scalers[sp][..., :L], scalers[sc][..., :L],
-            pmatrix[topo.edge_matrix], model["freqs_pc"],
-            model["rate_weights"], model["pattern_weights"],
-            model["prop_invar_pc"], model["invariant"], sites=topo.sites,
-            per_rate=per_rate, asc_mode=topo.asc_mode)
-        return logl, persite, inner, scalers
+    def forward(model, tip_clv):
+        clv, scalers = _empty_state(topo, tip_clv)
+        logl, persite, clv, scalers = fwd(model, clv, scalers)
+        return logl, persite, clv[tips:], scalers
 
     return forward
 
@@ -220,9 +218,9 @@ def make_asc_tail(topo: EvalTopology, rate_cats: int, states: int):
     """Ascertainment-bias correction as an XLA side-sweep over the S
     pseudo-columns (one all-one-state column per state; reference
     `src/pll.c:490-495`): a full pruning pass over just S sites is a few
-    thousand FLOPs even at 10k taxa, so the fast score kernels stay
-    asc-free and the correction composes with *every* scoring path
-    (fused / segmented / dyn / sharded).  Numerics are bit-identical to
+    thousand FLOPs even at 10k taxa, so the score paths stay asc-free and
+    the correction composes with every one of them (single-device,
+    chunked, sharded).  Numerics are bit-identical to
     :func:`make_forward`'s asc path (same level sweep, same fold).
 
     Returns ``tail(model, pmatrix) -> correction`` where ``model`` must
@@ -266,68 +264,149 @@ def make_asc_tail(topo: EvalTopology, rate_cats: int, states: int):
     return tail
 
 
-def _pinv_score_inputs(model, impl, dtype):
-    """(weight_vec, inv_add) for the linear in-kernel prop-invar fold:
-    ``Σ_c w_c[(1-p_c)·term_c + p_c·f_c[inv]]`` splits into a re-scaled
-    weight vector and a per-site additive term (reference mix order,
-    `src/core_likelihood.c:960-978`: per-rate scalers fold into term_c
-    first; the invariant likelihood enters unscaled)."""
-    from ..ops import clv_pallas as cp
+def _site_score(topo: EvalTopology, rate_cats: int, states: int,
+                use_pinv: bool, tip_encoding: str):
+    """(``f(pmatrix, model, tips_slab, pattern_weights, invariant) ->
+    partial logL`` over the slab's sites without the asc correction, the
+    :class:`_KernelScore` for the same configuration).
 
-    freqs = model["freqs_pc"].astype(dtype)          # [C, S]
-    pinv = model["prop_invar_pc"].astype(dtype)      # [C]
-    rw = model["rate_weights"].astype(dtype)         # [C]
-    inv = model["invariant"]                         # [L] int32
-    wvec = cp.pack_weight_vec(freqs * (1.0 - pinv)[:, None], rw, impl)
-    has = inv >= 0
-    inv_lk = jnp.where(has[None, :], freqs[:, jnp.maximum(inv, 0)], 0.0)
-    inv_add = jnp.einsum("c,cn->n", rw * pinv, inv_lk)[None, :]  # [1, L]
-    return wvec, inv_add
+    ``f`` is the XLA level sweep with the edge log-likelihood; pad columns
+    carry weight 0.  :func:`_dispatch` puts the kernel in front of it.
+    """
+    sweep = make_level_sweep(topo.schedule, topo.scale_mode)
+    per_rate = topo.scale_mode == SCALE_PER_RATE
+    tips = topo.schedule.tips
+    sp = topo.scaler_row(topo.parent_clv)
+    sc = topo.scaler_row(topo.child_clv)
+
+    def xla(pmatrix, model, tips_slab, pattern_weights, invariant):
+        dtype = pmatrix.dtype
+        tip_clv = decode_tips(tips_slab, tip_encoding, tips, rate_cats,
+                              states, dtype)
+        clv, scalers = _empty_state(topo, tip_clv)
+        clv, scalers = sweep(clv, scalers, pmatrix)
+        pinv = model["prop_invar_pc"].astype(dtype)
+        if not use_pinv:
+            pinv = jnp.zeros_like(pinv)
+        _, persite = lk_ops.edge_loglikelihood(
+            clv[topo.parent_clv], clv[topo.child_clv],
+            scalers[sp], scalers[sc], pmatrix[topo.edge_matrix],
+            model["freqs_pc"].astype(dtype),
+            model["rate_weights"].astype(dtype),
+            pattern_weights, pinv, invariant,
+            sites=tip_clv.shape[-1], per_rate=per_rate)
+        return accurate_sum(persite)
+
+    return xla, _KernelScore(topo, rate_cats, states, use_pinv, tip_encoding)
+
+
+def _dispatch(xla, kernel):
+    """``f(pmatrix, model, tips_slab, pattern_weights, invariant)``: the
+    kernel of :mod:`libpll_tpu.ops.score_kernel` where the configuration
+    is in its scope (float32, per-site or no scaling, C·S <= 16) and the
+    computation is lowered for an NVIDIA GPU, ``xla`` otherwise."""
+
+    def f(pmatrix, model, tips_slab, pattern_weights, invariant):
+        args = (pmatrix, model, tips_slab, pattern_weights, invariant)
+        if kernel.supported(pmatrix.dtype):
+            return kernel.choose(xla, *args)
+        return xla(*args)
+
+    return f
+
+
+class _KernelScore:
+    """The GPU score kernel behind the scoring wrappers: host slot plan,
+    slab padding and the second-pass sum of the per-block partials."""
+
+    def __init__(self, topo, rate_cats, states, use_pinv, tip_encoding):
+        self.topo, self.rate_cats, self.states = topo, rate_cats, states
+        self.use_pinv, self.tip_encoding = use_pinv, tip_encoding
+
+    def supported(self, dtype) -> bool:
+        return sk.kernel_supported(self.topo.scale_mode, dtype,
+                                   self.rate_cats, self.states)
+
+    def choose(self, xla, *args):
+        """The kernel when lowered for CUDA, ``xla`` on any other
+        platform (decided by where the computation runs, not by JAX's
+        default backend)."""
+        return jax.lax.platform_dependent(*args, cuda=self, default=xla)
+
+    @functools.cached_property
+    def plan(self):
+        topo = self.topo
+        return sk.plan_slots(topo.schedule, topo.parent_clv, topo.child_clv,
+                             topo.edge_matrix)
+
+    def __call__(self, pmatrix, model, tips_slab, pattern_weights,
+                 invariant, interpret=False):
+        C, S = self.rate_cats, self.states
+        dtype = pmatrix.dtype
+        block = sk.default_block_sites(tips_slab.shape[-1])
+        score = sk.make_kernel_score(
+            self.plan, self.topo.schedule.tips, rate_cats=C, states=S,
+            scale_mode=self.topo.scale_mode, tip_encoding=self.tip_encoding,
+            use_pinv=self.use_pinv, block_sites=block, interpret=interpret)
+        pad = -tips_slab.shape[-1] % block
+        slab = sk.prepare_slab(tips_slab, self.tip_encoding,
+                               self.topo.schedule.tips, C, S, block, dtype)
+        freqs = model["freqs_pc"].astype(dtype)
+        rw = model["rate_weights"].astype(dtype)
+        inv_add = jnp.zeros(pattern_weights.shape, dtype)
+        if self.use_pinv:
+            # Σ_c w_c[(1-p_c)·term_c + p_c·f_c[inv]]: a rescaled weight
+            # vector plus a per-site additive term (reference mix order,
+            # `src/core_likelihood.c:960-978`)
+            pinv = model["prop_invar_pc"].astype(dtype)
+            inv_lk = jnp.where(invariant[None, :] >= 0,
+                               freqs[:, jnp.maximum(invariant, 0)], 0.0)
+            inv_add = jnp.einsum("c,cn->n", rw * pinv, inv_lk)
+            freqs = freqs * (1.0 - pinv)[:, None]
+        wvec = sk.pad_rows((freqs * rw[:, None]).reshape(C * S, 1),
+                           sk.rows_padded(C, S))
+        pw = jnp.pad(pattern_weights.astype(dtype), (0, pad))[None, :]
+        inv_add = jnp.pad(inv_add, (0, pad))[None, :]
+        pbd = sk.block_diag_pmatrices(pmatrix, sk.rows_padded(C, S))
+        return accurate_sum(score(slab, pbd, wvec, pw, inv_add))
+
+
+def _check_score_config(topo, use_pinv):
+    if topo.asc_mode and use_pinv:
+        raise ValueError("asc-bias and prop-invar are mutually exclusive")
 
 
 def make_score(topo: EvalTopology, rate_cats: int, states: int,
-               impl: str = "auto", use_pinv: bool = False,
-               tip_encoding: str = "clv", mxu_precision: str = "highest",
-               interpret: bool = False):
-    """Tree-search scoring fast path: P-matrices → fused in-VMEM sweep with
-    the edge log-likelihood folded into the kernel (inner CLVs never touch
-    HBM).  Scope: per-site/no scaling; +I via the linear in-kernel fold
-    (``use_pinv``); asc-bias (topo.asc_mode) via the XLA pseudo-column
-    side-sweep (:func:`make_asc_tail`) — the full GTR(+Γ)(+I / +asc)
-    search configuration.  ``tip_encoding="chars"``: ``tips_packed`` is
-    :func:`~libpll_tpu.ops.clv_pallas.pack_tipchars` nibble words decoded
-    in VMEM (0.5 byte/tip/site — cuts the kernel's only HBM stream 64×
-    for DNA).
+               use_pinv: bool = False, tip_encoding: str = "clv"):
+    """Tree-search scoring: P-matrices → pruning sweep → edge
+    log-likelihood, one compiled program that returns only the logL.
+
+    ``tip_encoding`` (:mod:`libpll_tpu.ops.tipcodes`): ``"clv"`` takes
+    tip CLVs [tips, C, S, L]; ``"chars"`` nibble-packed codes from
+    :func:`~libpll_tpu.ops.tipcodes.pack_tipchars` (0.5 byte per tip and
+    site, DNA); ``"masks"`` one int32 bitmask per tip and site.  +I via
+    ``use_pinv``; asc-bias (``topo.asc_mode``) via the pseudo-column
+    side-sweep (:func:`make_asc_tail`); per-site, per-rate or no scaling
+    (``topo.scale_mode``).  On a GPU in float32 with per-site or no
+    scaling at DNA width the sweep runs in the kernel of
+    :mod:`libpll_tpu.ops.score_kernel`; otherwise in XLA.
 
     Returns ``score(model, tips_packed) -> logl``.
     """
-    from ..ops import clv_pallas as cp
-
-    if topo.asc_mode and use_pinv:
-        raise ValueError("asc-bias and prop-invar are mutually exclusive")
-    score_kernel = cp.make_fused_edge_score(
-        topo.schedule, topo.parent_clv, topo.child_clv, topo.edge_matrix,
-        topo.scale_mode, impl=impl, rate_cats=rate_cats, states=states,
-        use_pinv=use_pinv, tip_encoding=tip_encoding,
-        mxu_precision=mxu_precision, interpret=interpret)
+    check_tip_encoding(tip_encoding, states)
+    _check_score_config(topo, use_pinv)
+    local = _dispatch(*_site_score(topo, rate_cats, states, use_pinv,
+                                   tip_encoding))
     asc_tail = (make_asc_tail(topo, rate_cats, states)
                 if topo.asc_mode else None)
-    if impl == "auto":
-        impl = "vpu" if states <= 8 else "mxu"
 
     def score(model, tips_packed):
-        dtype = (model["freqs_pc"].dtype if tip_encoding in
-                 ("chars", "masks") else tips_packed.dtype)
+        dtype = (tips_packed.dtype if tip_encoding == "clv"
+                 else model["freqs_pc"].dtype)
         pmatrix = _pmatrices(model, topo, dtype)
-        pw = model["pattern_weights"].astype(dtype)[None, :]
-        if use_pinv:
-            wvec, inv_add = _pinv_score_inputs(model, impl, dtype)
-            logl = score_kernel(tips_packed, pmatrix, wvec, pw, inv_add)
-        else:
-            wvec = cp.pack_weight_vec(model["freqs_pc"].astype(dtype),
-                                      model["rate_weights"].astype(dtype),
-                                      impl)
-            logl = score_kernel(tips_packed, pmatrix, wvec, pw)
+        logl = local(pmatrix, model, tips_packed,
+                     model["pattern_weights"].astype(dtype),
+                     model["invariant"])
         if asc_tail is not None:
             logl = logl + asc_tail(model, pmatrix)
         return logl
@@ -336,63 +415,44 @@ def make_score(topo: EvalTopology, rate_cats: int, states: int,
 
 
 def make_score_sharded(topo: EvalTopology, rate_cats: int, states: int,
-                       mesh, impl: str = "auto", use_pinv: bool = False,
-                       interpret: bool = False):
-    """Multi-chip fused scoring: tips packed and sharded on the sites axis,
-    each device runs the fused edge-score kernel on its local site shard
-    (per-site scaling is shard-local by construction), and the partial
-    log-likelihoods meet in one psum over ICI — the entire cross-device
-    traffic of a full-tree evaluation (SURVEY §2.4/§5.8).  +I rides the
-    in-kernel fold with ``inv_add`` sharded like the sites; the asc-bias
-    pseudo-column sweep (:func:`make_asc_tail`) runs replicated outside
-    the shard_map (S columns — no reason to shard).
+                       mesh, use_pinv: bool = False):
+    """Multi-device scoring: tip CLVs [tips, C, S, L] sharded on the sites
+    axis, each device scores its local site shard (per-site scaling is
+    shard-local by construction) and the partial log-likelihoods meet in
+    one psum — the entire cross-device traffic of a full-tree evaluation
+    (SURVEY §2.4/§5.8).  The asc-bias pseudo-column sweep runs replicated
+    outside the shard_map (S columns — no reason to shard).
 
-    Returns ``score(model, tips_packed) -> logl`` where ``tips_packed`` is
-    sharded [tips, C*S, L] (L divisible by mesh size × the kernel's site
-    block).
+    Returns ``score(model, tip_clv) -> logl``; L must divide the mesh.
     """
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from ..ops import clv_pallas as cp
     from ..parallel.mesh import SITES_AXIS
 
-    if topo.asc_mode and use_pinv:
-        raise ValueError("asc-bias and prop-invar are mutually exclusive")
-    score_kernel = cp.make_fused_edge_score(
-        topo.schedule, topo.parent_clv, topo.child_clv, topo.edge_matrix,
-        topo.scale_mode, impl=impl, rate_cats=rate_cats, states=states,
-        use_pinv=use_pinv, interpret=interpret)
+    _check_score_config(topo, use_pinv)
+    local = _dispatch(*_site_score(topo, rate_cats, states, use_pinv,
+                                   "clv"))
     asc_tail = (make_asc_tail(topo, rate_cats, states)
                 if topo.asc_mode else None)
-    if impl == "auto":
-        impl = "vpu" if states <= 8 else "mxu"
+    shard = P(SITES_AXIS)
 
-    def score(model, tips_packed):
-        dtype = tips_packed.dtype
-        pmatrix = _pmatrices(model, topo, dtype)
-        pw = model["pattern_weights"].astype(dtype)[None, :]
-        if use_pinv:
-            wvec, inv_add = _pinv_score_inputs(model, impl, dtype)
-        else:
-            wvec = cp.pack_weight_vec(model["freqs_pc"].astype(dtype),
-                                      model["rate_weights"].astype(dtype),
-                                      impl)
-            inv_add = jnp.zeros((1, pw.shape[-1]), dtype)
+    def score(model, tip_clv):
+        pmatrix = _pmatrices(model, topo, tip_clv.dtype)
 
-        def local(tp, pmat, wv, pwl, inv):
-            part = (score_kernel(tp, pmat, wv, pwl, inv) if use_pinv
-                    else score_kernel(tp, pmat, wv, pwl))
-            return jax.lax.psum(part, SITES_AXIS)
+        def part(tp, pmat, m, pw, inv):
+            return jax.lax.psum(local(pmat, m, tp, pw, inv), SITES_AXIS)
 
         # check_vma=False: pallas_call's out_shape carries no varying-axis
         # metadata, which the vma checker would otherwise reject
         fn = shard_map(
-            local, mesh=mesh,
-            in_specs=(P(None, None, SITES_AXIS), P(), P(),
-                      P(None, SITES_AXIS), P(None, SITES_AXIS)),
+            part, mesh=mesh,
+            in_specs=(P(None, None, None, SITES_AXIS), P(), P(), shard,
+                      shard),
             out_specs=P(), check_vma=False)
-        logl = fn(tips_packed, pmatrix, wvec, pw, inv_add)
+        logl = fn(tip_clv, pmatrix, _replicated(model),
+                  model["pattern_weights"].astype(tip_clv.dtype),
+                  model["invariant"])
         if asc_tail is not None:
             logl = logl + asc_tail(model, pmatrix)
         return logl
@@ -400,110 +460,99 @@ def make_score_sharded(topo: EvalTopology, rate_cats: int, states: int,
     return score
 
 
-def _pick_dyn_score_layout(schedule, rate_cats: int, states: int,
-                           sites: int, ensure_rows):
-    """(block_sites, DynSchedule) for the dyn score tier.
+def _replicated(model):
+    """The model entries the per-site score reads, without its per-site
+    arrays (those travel sharded)."""
+    return {k: model[k] for k in ("freqs_pc", "rate_weights",
+                                  "prop_invar_pc")}
 
-    Measured on the chip (2026-08-20, chain-pair timing): per-block
-    overhead dominates the dyn kernels at the default 128-site block
-    when trees are small-to-mid — 64×262k: 6.21 ms at bl=128 vs 3.17 at
-    256; 1024×16k: 8.89 at 128 vs 2.77 at 512 (21 segments); 4096×8192:
-    16.1 at 128 vs 6.54 at 512 (~68 segments) — but the per-(segment ×
-    site-block) boundary restaging inverts it at giant scale: 10 240 ×
-    131 072 measured 0.90 s at bl=128 (36 segments), 1.89 s at 256 (80)
-    and 4.59 s at 512 (221).  Two further exceptions: forcing a
-    one-segment tree to split (64×262k at 512: 2 segments, 3.60 ms —
-    worse than 256's single segment), and blocks past 512, where the row
-    budget collapses (bl=1024: 32 rows, 83 segments, 8.53 ms at
-    1024×16k).  Rule, matching the best measured choice at all four
-    configs: the widest candidate that keeps ONE segment; else the
-    widest whose segments × site-blocks stays under ~4k (wide wins up to
-    ~1.1k measured, narrow wins from ~37k; the cut sits between); else
-    128."""
-    from ..ops import clv_pallas_dyn as cpd
 
-    cs = rate_cats * states
-    candidates = [bs for bs in (512, 256, 128) if sites % bs == 0] or [128]
-    builds = []
-    for bs in candidates:
-        rows = 2 * cpd._dyn_max_rows(cs, 4, bs)
-        if bs != candidates[-1]:
-            # cheap pre-check: segments >= ceil(n_inner / row budget), so
-            # a width that provably can't reach one segment NOR pass the
-            # <=4k cut would be built only to be discarded — at giant
-            # scale those widest builds are exactly the most expensive
-            # segmentation walks
-            min_segs = -(-schedule.n_inner // rows)
-            if min_segs > 1 and min_segs * (sites // bs) > 4000:
-                continue
-        dyn = cpd.build_dyn_schedule(
-            schedule, rate_cats=rate_cats, states=states, max_rows=rows,
-            block_sites=bs, ensure_rows=ensure_rows)
-        if len(dyn.segments) == 1:
-            return bs, dyn
-        builds.append((bs, dyn))
-    for bs, dyn in builds:  # widest first
-        if len(dyn.segments) * (sites // bs) <= 4000:
-            return bs, dyn
-    return builds[-1]
+# one site chunk of the XLA score holds at most this many CLV bytes
+_CHUNK_BYTES = 1 << 30
+
+
+def score_chunk_sites(topo: EvalTopology, rate_cats: int, states: int,
+                      sites: int, itemsize: int = 4) -> int:
+    """Sites per chunk of :func:`make_score_unbounded`: the largest power
+    of two (at least 128) whose full CLV buffer fits ``_CHUNK_BYTES``,
+    capped at the site count rounded up to 128."""
+    nodes = topo.schedule.tips + topo.schedule.n_inner
+    per_site = nodes * rate_cats * states * itemsize
+    chunk = 128
+    while chunk * 2 * per_site <= _CHUNK_BYTES and chunk < sites:
+        chunk *= 2
+    return chunk
+
+
+def _chunked_score(topo, rate_cats, states, use_pinv, encoding, chunk):
+    """``f(pmatrix, model, slab, pattern_weights, invariant) -> logL``
+    summing the XLA score of :func:`_site_score` over site chunks with
+    ``lax.map`` (peak memory one chunk's CLVs, at any tree size); L a
+    multiple of ``chunk``.  The kernel keeps only a few CLV slots per
+    site block, so it takes the whole slab in one launch."""
+    xla, kernel = _site_score(topo, rate_cats, states, use_pinv, encoding)
+
+    def chunked(pmatrix, model, slab, pw, inv):
+        n = slab.shape[-1] // chunk
+
+        def split(x):
+            return jnp.moveaxis(x.reshape(x.shape[:-1] + (n, chunk)), -2, 0)
+
+        parts = jax.lax.map(
+            lambda a: xla(pmatrix, model, *a),
+            (split(slab), split(pw), split(inv)))
+        return jnp.sum(parts)
+
+    return _dispatch(chunked, kernel)
+
+
+def _pad_site_inputs(masks, states, multiple):
+    """Tip slab padded with gap columns to a multiple of ``multiple``;
+    returns (encoding, slab, pad)."""
+    pad = -masks.shape[1] % multiple
+    if pad:
+        masks = np.concatenate(
+            [masks, np.full((masks.shape[0], pad), gap_code(states),
+                            masks.dtype)], axis=1)
+    if int(masks.max()) <= 0xF:
+        return "chars", np.asarray(pack_tipchars(masks)), pad
+    return "masks", np.asarray(pack_tipmasks(masks)), pad
+
+
+def _padded_site_arrays(model, dtype, pad):
+    pw = jnp.pad(model["pattern_weights"].astype(dtype), (0, pad))
+    inv = jnp.pad(model["invariant"], (0, pad), constant_values=-1)
+    return pw, inv
 
 
 def make_score_unbounded(topo: EvalTopology, rate_cats: int, states: int,
-                         tip_masks, use_pinv: bool = False,
-                         mxu_precision: str = "highest",
-                         interpret: bool = False):
-    """Tree-search scoring for trees of any size (data-driven segmented
-    kernels, O(1) compile cost) with pattern-tip storage: 0.5 byte/tip/site
-    for ≤4-bit alphabets (DNA), 4 bytes for wide alphabets (protein
-    20-bit ambiguity masks) — both decoded to 0/1 CLV rows in VMEM.
-    +I via the linear in-kernel fold (``use_pinv``); asc-bias
-    (topo.asc_mode) via the XLA pseudo-column side-sweep.
+                         tip_masks, use_pinv: bool = False):
+    """Tree-search scoring for trees of any size with pattern-tip storage:
+    0.5 byte per tip and site for <=4-bit alphabets (DNA), 4 bytes for
+    wide alphabets (protein 20-bit ambiguity masks).  The sweep runs over
+    site chunks (:func:`score_chunk_sites`) so that peak memory stays
+    bounded at any tree size.  +I via ``use_pinv``; asc-bias
+    (topo.asc_mode) via the pseudo-column side-sweep.
 
     ``tip_masks``: [tips, sites] integer ambiguity bitmasks
     (Partition._tip_masks or io.maps.encode_sequence output).
     Returns ``score(model) -> logl``; tip data is baked at build time
     (tips are constant after setup).
     """
-    from ..ops import clv_pallas as cp
-    from ..ops import clv_pallas_dyn as cpd
-
-    if topo.asc_mode and use_pinv:
-        raise ValueError("asc-bias and prop-invar are mutually exclusive")
-    # score kernels hold no per-local output slabs (exports only), so they
-    # afford ~2x the sweep path's VMEM row budget (measured on TPU at
-    # 4096x8192: 18.0 ms (default rows) -> 16.1 ms (2x), regressing again
-    # beyond ~3x); the site-block width trades against segment count —
-    # see _pick_dyn_score_layout for the measured rule
+    _check_score_config(topo, use_pinv)
     masks = np.asarray(tip_masks)
-    bs, dyn = _pick_dyn_score_layout(
-        topo.schedule, rate_cats, states, masks.shape[1],
-        [topo.parent_clv, topo.child_clv])
-    enc = "chars" if int(masks.max()) <= 0xF else "masks"
-    impl = "vpu" if states <= 8 else "mxu"
-    slabs = (cpd.pack_tipchars_dyn(masks, dyn) if enc == "chars"
-             else cpd.pack_tipmasks_dyn(masks, dyn))
-    tables, m_gathers, exp_tables = cpd.dyn_score_args(dyn)
-    score_kernel = cpd.make_dyn_score(
-        dyn, topo.parent_clv, topo.child_clv, topo.edge_matrix,
-        topo.scale_mode, rate_cats=rate_cats, states=states,
-        tip_encoding=enc, impl=impl, use_pinv=use_pinv,
-        block_sites=bs, mxu_precision=mxu_precision, interpret=interpret)
+    chunk = score_chunk_sites(topo, rate_cats, states, masks.shape[1])
+    enc, slab, pad = _pad_site_inputs(masks, states, chunk)
+    slab = jnp.asarray(slab)
+    f = _chunked_score(topo, rate_cats, states, use_pinv, enc, chunk)
     asc_tail = (make_asc_tail(topo, rate_cats, states)
                 if topo.asc_mode else None)
 
     def score(model):
         dtype = model["freqs_pc"].dtype
         pmatrix = _pmatrices(model, topo, dtype)
-        pw = model["pattern_weights"].astype(dtype)[None, :]
-        if use_pinv:
-            wvec, inv_add = _pinv_score_inputs(model, impl, dtype)
-            logl = score_kernel(slabs, tables, m_gathers, exp_tables,
-                                pmatrix, wvec, pw, inv_add)
-        else:
-            wvec = cp.pack_weight_vec(model["freqs_pc"],
-                                      model["rate_weights"], impl)
-            logl = score_kernel(slabs, tables, m_gathers, exp_tables,
-                                pmatrix, wvec, pw)
+        pw, inv = _padded_site_arrays(model, dtype, pad)
+        logl = f(pmatrix, model, slab, pw, inv)
         if asc_tail is not None:
             logl = logl + asc_tail(model, pmatrix)
         return logl
@@ -513,79 +562,46 @@ def make_score_unbounded(topo: EvalTopology, rate_cats: int, states: int,
 
 def make_score_unbounded_sharded(topo: EvalTopology, rate_cats: int,
                                  states: int, tip_masks, mesh,
-                                 use_pinv: bool = False,
-                                 interpret: bool = False):
-    """Multi-chip data-driven scoring: the dyn tier (pattern-tip slabs,
-    O(1) compile cost, unbounded tree size) under ``shard_map`` — each
-    device runs every segment's kernel on its local site shard (per-site
-    scaling is shard-local by construction; schedule tables, coefficient
-    tiles and P-matrices replicate) and the partial log-likelihoods meet
-    in ONE psum over ICI.  This is the 10k-taxa × 1M-site configuration of
-    BASELINE.json: nibble-packed tips sharded over the mesh.
+                                 use_pinv: bool = False):
+    """Multi-device :func:`make_score_unbounded`: pattern-tip slabs
+    sharded over the mesh's sites axis, each device sums its local chunks
+    and the partial log-likelihoods meet in ONE psum.  This is the
+    10k-taxa × 1M-site configuration of BASELINE.json.
 
-    Returns ``score(model) -> logl``; slab site length must divide
-    mesh size × the kernel's site block (auto-picked from {128, 256,
-    512} per _pick_dyn_score_layout; 128 is always viable, and
-    per-device shares divisible by 256/512 unlock the measured
-    2.5–3.2× faster wide layouts).
+    Returns ``score(model) -> logl``; sites are padded with weight-0 gap
+    columns to a multiple of mesh size × chunk.
     """
     from jax import shard_map
+    from jax.sharding import NamedSharding
     from jax.sharding import PartitionSpec as P
 
-    from ..ops import clv_pallas as cp
-    from ..ops import clv_pallas_dyn as cpd
     from ..parallel.mesh import SITES_AXIS
 
-    if topo.asc_mode and use_pinv:
-        raise ValueError("asc-bias and prop-invar are mutually exclusive")
+    _check_score_config(topo, use_pinv)
     masks = np.asarray(tip_masks)
-    # the block must divide each device's LOCAL site share; slabs shard
-    # only over SITES_AXIS (P(None, SITES_AXIS) below)
     n_shards = int(mesh.shape[SITES_AXIS])
-    bs, dyn = _pick_dyn_score_layout(
-        topo.schedule, rate_cats, states, masks.shape[1] // n_shards,
-        [topo.parent_clv, topo.child_clv])
-    enc = "chars" if int(masks.max()) <= 0xF else "masks"
-    impl = "vpu" if states <= 8 else "mxu"
-    slabs = tuple(cpd.pack_tipchars_dyn(masks, dyn) if enc == "chars"
-                  else cpd.pack_tipmasks_dyn(masks, dyn))
-    tables, m_gathers, exp_tables = cpd.dyn_score_args(dyn)
-    tables, m_gathers = tuple(tables), tuple(m_gathers)
-    exp_tables = tuple(exp_tables)
-    score_kernel = cpd.make_dyn_score(
-        dyn, topo.parent_clv, topo.child_clv, topo.edge_matrix,
-        topo.scale_mode, rate_cats=rate_cats, states=states,
-        tip_encoding=enc, impl=impl, use_pinv=use_pinv,
-        block_sites=bs, interpret=interpret)
+    chunk = score_chunk_sites(topo, rate_cats, states,
+                              -(-masks.shape[1] // n_shards))
+    enc, slab, pad = _pad_site_inputs(masks, states, chunk * n_shards)
+    shard2 = P(None, SITES_AXIS)
+    slab = jax.device_put(slab, NamedSharding(mesh, shard2))
+    f = _chunked_score(topo, rate_cats, states, use_pinv, enc, chunk)
     asc_tail = (make_asc_tail(topo, rate_cats, states)
                 if topo.asc_mode else None)
-
-    shard_sites = P(None, SITES_AXIS)
-    repl = P()
+    shard = P(SITES_AXIS)
 
     def score(model):
         dtype = model["freqs_pc"].dtype
         pmatrix = _pmatrices(model, topo, dtype)
-        pw = model["pattern_weights"].astype(dtype)[None, :]
-        if use_pinv:
-            wvec, inv_add = _pinv_score_inputs(model, impl, dtype)
-        else:
-            wvec = cp.pack_weight_vec(model["freqs_pc"],
-                                      model["rate_weights"], impl)
-            inv_add = jnp.zeros((1, pw.shape[-1]), dtype)
+        pw, inv = _padded_site_arrays(model, dtype, pad)
 
-        def local(slabs_l, pmat, wv, pwl, inv_l):
-            part = score_kernel(list(slabs_l), tables, m_gathers,
-                                exp_tables, pmat, wv, pwl,
-                                inv_l if use_pinv else None)
-            return jax.lax.psum(part, SITES_AXIS)
+        def part(sl, pmat, m, pwl, invl):
+            return jax.lax.psum(f(pmat, m, sl, pwl, invl), SITES_AXIS)
 
-        fn = shard_map(
-            local, mesh=mesh,
-            in_specs=(tuple(shard_sites for _ in slabs), repl, repl,
-                      shard_sites, shard_sites),
-            out_specs=repl, check_vma=False)
-        logl = fn(slabs, pmatrix, wvec, pw, inv_add)
+        fn = shard_map(part, mesh=mesh,
+                       in_specs=(shard2, P(), P(), shard, shard),
+                       out_specs=P(), check_vma=False)
+        logl = fn(slab, pmatrix, _replicated(model), pw, inv)
         if asc_tail is not None:
             logl = logl + asc_tail(model, pmatrix)
         return logl
@@ -593,69 +609,19 @@ def make_score_unbounded_sharded(topo: EvalTopology, rate_cats: int,
     return score
 
 
-def make_train_step_fused(topo: EvalTopology, rate_cats: int, states: int,
-                          impl: str = "auto", interpret: bool = False):
-    """Newton branch-length optimization on the fused-Pallas path: fused
-    sweep → edge logL → sumtable (once) → device-resident Newton while_loop
-    (SURVEY §3.3), all in one compiled program.
+def make_train_step_fused(topo: EvalTopology, rate_cats: int, states: int):
+    """:func:`make_train_step` from tip CLVs alone: sweep → edge logL →
+    sumtable → device-resident Newton ``while_loop`` on the evaluation
+    edge, one compiled program.
 
-    Returns ``step(model, tips_packed) -> (logl, t_star)``.
+    Returns ``step(model, tip_clv) -> (logl, t_star)``.
     """
-    from ..ops import clv_pallas as cp
+    del rate_cats, states  # read from the tip CLVs' shape
+    step_full = make_train_step(topo)
 
-    fwd = make_forward_fused(topo, rate_cats, states, impl=impl,
-                             interpret=interpret)
-    if impl == "auto":
-        impl = "vpu" if states <= 8 else "mxu"
-    per_rate = topo.scale_mode == SCALE_PER_RATE
-    tips = topo.schedule.tips
-    sp = topo.scaler_row(topo.parent_clv)
-    sc = topo.scaler_row(topo.child_clv)
-    MIN_T, MAX_T = 1e-8, 100.0
-
-    def row(tips_packed, inner, idx, L):
-        packed = tips_packed[idx] if idx < tips else inner[idx - tips]
-        return cp.unpack_clv(packed[..., :L], rate_cats, states, impl)
-
-    def step(model, tips_packed):
-        logl, _, inner, scalers = fwd(model, tips_packed)
-        dtype = tips_packed.dtype
-        L = model["pattern_weights"].shape[-1]
-        clv_p = row(tips_packed, inner, topo.parent_clv, L)
-        clv_c = row(tips_packed, inner, topo.child_clv, L)
-        left_pc = model["left"][model["params_indices"]].astype(dtype)
-        right_pc = model["right"][model["params_indices"]].astype(dtype)
-        evals_pc = model["eigenvals"][model["params_indices"]].astype(dtype)
-        sumtable = deriv_ops.update_sumtable(
-            clv_p, clv_c, scalers[sp][..., :L], scalers[sc][..., :L],
-            model["freqs_pc"].astype(dtype), left_pc, right_pc,
-            per_rate=per_rate)
-
-        t0 = model["branch_lengths"][-1]
-        zeros_site = jnp.zeros((L,), dtype=jnp.int32)
-
-        def cond(carry):
-            t, d1, it = carry
-            return (jnp.abs(d1) > 1e-9) & (it < 32)
-
-        def body(carry):
-            t, _, it = carry
-            d1, d2 = deriv_ops.likelihood_derivatives(
-                sumtable, t, model["rates"].astype(dtype),
-                model["prop_invar_pc"].astype(dtype), evals_pc,
-                model["freqs_pc"].astype(dtype),
-                model["rate_weights"].astype(dtype),
-                model["invariant"],
-                model["pattern_weights"].astype(dtype),
-                zeros_site, zeros_site, sites=topo.sites,
-                asc_mode=topo.asc_mode)
-            step_ = jnp.where(d2 != 0.0, d1 / d2, d1)
-            t_new = jnp.clip(t - step_, MIN_T, MAX_T)
-            return (t_new, d1, it + 1)
-
-        big = jnp.asarray(jnp.inf, dtype=dtype)
-        t_star, _, _ = jax.lax.while_loop(
-            cond, body, (t0.astype(dtype), big, 0))
+    def step(model, tip_clv):
+        clv, scalers = _empty_state(topo, tip_clv)
+        logl, t_star, _, _ = step_full(model, clv, scalers)
         return logl, t_star
 
     return step

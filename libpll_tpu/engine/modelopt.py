@@ -10,7 +10,7 @@ assemble it from the setters (`pll_set_subst_params` /
 `pll_compute_gamma_cats` (src/gamma.c:220) and an external optimizer; the
 shipped examples only optimize branch lengths
 (reference examples/newton/newton.c:31-100).  Here it is first-class and
-TPU-native:
+runs on the device:
 
   * the log-likelihood is differentiable end to end in the exchangeability
     and frequency parameters — the symmetrized GTR generator is

@@ -2,7 +2,7 @@
 
 Capability parity with `pll_partition_create` and its setter/compute API
 (libpll `src/pll.c:399-1116`, `src/partials.c`, `src/likelihood.c`,
-`src/derivatives.c`, `src/models.c`), redesigned TPU-first:
+`src/derivatives.c`, `src/models.c`), redesigned for an accelerator:
 
   * all bulk state is a handful of dense jax arrays — CLVs
     ``[nodes, rate_cats, states, sites]`` with sites on the lane axis (and
@@ -117,7 +117,12 @@ class Partition:
         self.sites_alloc = sites + (states if asc_bias_alloc else 0)
         L, C, S = self.sites_alloc, rate_cats, states
 
-        self._clv = jnp.zeros((self.nodes, C, S, L), dtype=dtype)
+        # the CLV tensor is allocated at its first read, where
+        # ``place_clv`` says (default device otherwise), so that a
+        # site-sharded partition never holds it whole on one device
+        self.clv_shape = (self.nodes, C, S, L)
+        self._clv = None
+        self._clv_sharding = None
         # tip rows staged host-side and flushed in ONE scatter on first
         # read: a per-tip .at[i].set() copies the whole tensor, turning
         # giant-tree setup O(nodes²) (274 GB of memcpy at 2048 taxa)
@@ -193,14 +198,18 @@ class Partition:
         self._staged_tips[tip_index] = full
 
     def _flush_tips(self) -> None:
+        if self._clv is None:
+            self._clv = jnp.zeros(self.clv_shape, self.dtype,
+                                  device=self._clv_sharding)
         if not self._staged_tips:
             return
         staged, self._staged_tips = self._staged_tips, {}
         idx = np.fromiter(staged.keys(), np.int64, len(staged))
-        tiles = jnp.asarray(np.stack([staged[i] for i in idx]),
-                            dtype=self.dtype)          # [k, S, L]
-        tiles = jnp.broadcast_to(
+        tiles = np.stack([staged[i] for i in idx])      # [k, S, L]
+        tiles = np.broadcast_to(
             tiles[:, None], (len(idx), self.rate_cats) + tiles.shape[1:])
+        # host-side broadcast, then each device receives only its shard
+        tiles = jax.device_put(tiles, self._clv.sharding)
         self._clv = self._clv.at[jnp.asarray(idx)].set(tiles)
 
     @property
@@ -211,6 +220,13 @@ class Partition:
     @clv.setter
     def clv(self, value) -> None:
         self._clv = value
+
+    def place_clv(self, sharding) -> None:
+        """Put the CLV tensor on ``sharding`` (a device or a sharding);
+        before the tensor's first read, allocate it there instead."""
+        self._clv_sharding = sharding
+        if self._clv is not None:
+            self._clv = jax.device_put(self._clv, sharding)
 
     def set_subst_params(self, params_index: int, params) -> None:
         p = np.asarray(params, dtype=np.float64)

@@ -1,7 +1,7 @@
 """Native (C++) host-runtime kernels, loaded via ctypes.
 
 The reference's host layer is C (fasta.c, compress.c, tip encoding in
-pll.c); this package provides the TPU rebuild's native equivalents — see
+pll.c); this package provides the rebuild's native equivalents — see
 host.cpp.  The shared library is built on demand with g++ (no Python
 headers, pure C ABI) and cached next to the source; every entry point has a
 pure-Python fallback in the calling module, so the package works without a

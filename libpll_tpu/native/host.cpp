@@ -1,7 +1,7 @@
 // Native host-runtime kernels for libpll_tpu (C ABI, loaded via ctypes).
 //
 // The reference implements its entire host layer in C (fasta.c, compress.c,
-// pll.c tip encoding); the TPU rebuild keeps the compute path in
+// pll.c tip encoding); the rebuild keeps the compute path in
 // JAX/XLA/Pallas and implements the same host-side hot paths natively here:
 //
 //   * site-pattern compression  (reference: compress.c:138-286, 3-way radix

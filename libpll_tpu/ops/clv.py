@@ -6,7 +6,7 @@ for XLA: the per-site/rate/state triple loop becomes, per operation,
 
     ``new[c] = (P_left[c] @ clv_left[c]) * (P_right[c] @ clv_right[c])``
 
-a pair of batched ``[S,S] @ [S, sites]`` matmuls — sites on the TPU lane
+a pair of batched ``[S,S] @ [S, sites]`` matmuls — sites on the minor
 axis — and the whole post-order schedule is executed on-device as a
 ``lax.scan`` over an int32 operation table. Tips are bit-encoded 0/1 CLVs
 (the reference's default, `src/pll.c:905-964`), so tip-tip / tip-inner cases
@@ -118,7 +118,7 @@ def update_partials_leveled(clv, scalers, level_ops, level_valid, pmatrix,
         padding; kept for masking alternative padding schemes).
 
     This is the throughput path: the batched matmul per level has
-    ``width × C × S × L`` output elements, which keeps the MXU/VPU busy for
+    ``width × C × S × L`` output elements, which keeps the device busy for
     small trees where the sequential scan would be launch-bound.
     """
     dtype = clv.dtype

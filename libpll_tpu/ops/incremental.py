@@ -190,12 +190,11 @@ def make_candidate_scorer(n_nodes: int, n_scale_buffers: int, capacity: int,
                 asc_mode=asc_mode)
             return logl
 
-        # lax.map, deliberately NOT vmap: batching candidates turns every
+        # lax.map, not vmap: batching candidates turns every
         # base-or-scratch fetch into a B-row gather and every scratch
-        # update into a dynamic-update-slice on a [B,K,C,S,L] buffer —
-        # measured 3x SLOWER end-to-end on the SPR phase at 1024x16k
-        # (439 s vs ~150 s) than the sequential map whose per-candidate
-        # slices XLA keeps as cheap row streams.
+        # update into a dynamic-update-slice on a [B,K,C,S,L] buffer,
+        # where the sequential map keeps per-candidate slices as cheap
+        # row streams.  Which wins on a GPU is not measured yet.
         return jax.lax.map(one, (tables, upd_midx, upd_blens, eval_rows))
 
     return score

@@ -2,7 +2,7 @@
 
 Same math as :mod:`libpll_tpu.ops.clv` (which remains the reference
 implementation, mirroring libpll's generic-vs-SIMD duality), restructured for
-TPU memory behavior:
+throughput:
 
   * inner CLVs are renumbered *level-major* so each dependency level's
     parents occupy one contiguous row range — the level's result lands with

@@ -1,8 +1,8 @@
 """Device meshes and site-axis sharding.
 
 The reference is single-threaded C with SIMD over sites (SURVEY §2.4); the
-TPU-native equivalent is data parallelism over the *sites* axis of every
-per-site array across all chips of a mesh: CLVs ``[node, rate, state, sites]``,
+device equivalent is data parallelism over the *sites* axis of every
+per-site array across all devices of a mesh: CLVs ``[node, rate, state, sites]``,
 scalers, pattern weights, invariant indices and per-site log-likelihoods are
 sharded on their last axis, while P-matrices, eigen data and frequencies are
 tiny and replicated. The phylogenetic likelihood is exactly decomposable over
@@ -11,7 +11,8 @@ sites, so the only cross-device communication is the final weighted log-sum
 inserts automatically under jit when reductions cross the sharded axis.
 
 Multi-host: call :func:`initialize_distributed` once per process; the mesh
-then spans all processes' devices and ICI/DCN routing is XLA's concern.
+then spans all processes' devices and the routing between them is XLA's
+concern.
 """
 
 from __future__ import annotations
@@ -71,8 +72,7 @@ def shard_partition(partition, mesh: Mesh) -> None:
     the pad, mirroring how the reference pads SIMD widths with zero-weight
     columns).
     """
-    shard_last = sharding_for_rank(mesh, partition.clv.ndim)
-    partition.clv = jax.device_put(partition.clv, shard_last)
+    partition.place_clv(sharding_for_rank(mesh, len(partition.clv_shape)))
     partition.scalers = jax.device_put(
         partition.scalers, sharding_for_rank(mesh, partition.scalers.ndim))
     partition.pmatrix = jax.device_put(partition.pmatrix, replicated(mesh))

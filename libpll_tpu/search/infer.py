@@ -66,7 +66,7 @@ def infer_tree(sequences: Dict[str, str], *, states: int = 4,
 
     Model: GTR(+Γ) with fixed ``frequencies``/``subst_params`` (defaults:
     uniform) and Γ shape ``alpha``.  ``dtype`` selects the numeric path
-    (float64 parity path by default; float32 for TPU throughput).
+    (float64 parity path by default; float32 for throughput).
     ``compress`` dedups site patterns into weighted columns
     (`pll_compress_site_patterns`) before any device work — the standard
     real-data speedup; the inferred logL equals the uncompressed one.

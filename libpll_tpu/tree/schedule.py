@@ -1,7 +1,7 @@
 """Operation-schedule post-processing: dependency levels for batched sweeps.
 
 The reference executes operations strictly sequentially
-(`src/partials.c:184`); on TPU, all operations in the same dependency level
+(`src/partials.c:184`); on a device, all operations in the same dependency level
 of the post-order DAG are independent, so they can run as ONE batched kernel
 (vmap over the level). Levels are padded to a common width by duplicating an
 op from the same level — duplicate writes are idempotent (same inputs → same

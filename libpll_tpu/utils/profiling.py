@@ -1,20 +1,14 @@
 """Tracing / profiling helpers (SURVEY §5.1).
 
 The reference's only measurement tooling is the 20-replicate wall-clock mode
-of its test runner (`test/runtest.py:137-263`); the rebuild exposes the TPU
-equivalents: `jax.profiler` trace capture plus a robust wall-clock timer for
-jitted functions.
-
-Timing note (also in BASELINE.md): on some remote-TPU platforms
-``block_until_ready`` does not fence device work, so ``time_jitted`` chains
-K data-dependent invocations inside one jit, ends in a scalar readback, and
-reports (t_K − t_1)/(K − 1) — which also cancels the host↔device readback
-latency from the measurement.
+of its test runner (`test/runtest.py:137-263`); the rebuild exposes
+`jax.profiler` trace capture plus a wall-clock timer for jitted functions.
 """
 
 from __future__ import annotations
 
 import contextlib
+import statistics
 import time
 from typing import Callable, Dict
 
@@ -31,25 +25,17 @@ def trace(log_dir: str):
         jax.profiler.stop_trace()
 
 
-def time_jitted(make_chain: Callable[[int], Callable], *args,
-                k: int = 5, reps: int = 3) -> float:
-    """Seconds per invocation of a chained jitted function.
-
-    ``make_chain(k)`` must return a jitted callable running the workload k
-    times with data dependencies between iterations and returning a scalar.
-    """
-    f1, fk = make_chain(1), make_chain(k)
-
-    def best(f):
-        float(f(*args))  # compile + warm
-        b = float("inf")
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            float(f(*args))
-            b = min(b, time.perf_counter() - t0)
-        return b
-
-    return (best(fk) - best(f1)) / (k - 1)
+def time_jitted(f: Callable, *args, reps: int = 10) -> float:
+    """Median seconds per call of ``f(*args)``, each call ending in
+    ``block_until_ready``, after one warm-up call (compilation is not
+    counted)."""
+    jax.block_until_ready(f(*args))
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(f(*args))
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
 
 
 class KernelTimer:

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """f32 fast-path accuracy at flagship scale, measured on the live backend.
 
-Compares the f32 scoring kernels (compiled, real TPU when available)
-against the float64 XLA forward on the same data and prints one line per
-configuration:
+Compares the f32 pattern-tip score (make_score_unbounded) on JAX's default
+backend against the float64 level-sweep forward on the CPU, on the same
+data, and prints one line per configuration:
 
     config | logL_f64 | logL_f32 | |delta| | budget(2e-6*|L|+5e-3) | ok
 
-Run:  python scripts/bench_accuracy.py          (TPU / default backend)
-      python scripts/bench_accuracy.py cpu      (CPU, interpret kernels)
+Run:  python scripts/bench_accuracy.py          (default backend)
+      python scripts/bench_accuracy.py cpu      (CPU, small configurations)
 """
 
 import sys
@@ -29,12 +29,11 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 
 from libpll_tpu.engine import evaluate as ev
-from libpll_tpu.ops import clv_pallas as cp
+from libpll_tpu.ops import tipcodes as tc
+from libpll_tpu.utils.simulate import caterpillar_newick as _caterpillar_newick
+from libpll_tpu.utils.simulate import random_tree_newick as _random_tree_newick
 
-from test_clv_pallas import _caterpillar_newick, _random_tree_newick
-from test_clv_pallas_seg import _build
-
-ACC_REL, ACC_ABS = 2e-6, 5e-3
+from score_cases import ACC_ABS, ACC_REL, _build
 
 CONFIGS = [
     ("flagship 64x262144", _random_tree_newick, 64, 262144),
@@ -42,7 +41,7 @@ CONFIGS = [
     ("large 1024 x 32768", _random_tree_newick, 1024, 32768),
     ("deep 4096-caterpillar x 2048", _caterpillar_newick, 4096, 2048),
 ]
-if CPU:  # interpreter mode is slow: shrink
+if CPU:  # the CPU is slow: shrink
     CONFIGS = [
         ("flagship 32x8192", _random_tree_newick, 32, 8192),
         ("deep 64-caterpillar x 1024", _caterpillar_newick, 64, 1024),
@@ -54,7 +53,7 @@ def run(name, newick_fn, tips, sites):
     newick = (newick_fn(tips, rng) if newick_fn is _random_tree_newick
               else newick_fn(tips))
     # float64 truth on the host CPU backend (f64 CLVs at these scales
-    # exceed one chip's HBM; the XLA path is identical either way)
+    # are large; the level sweep is identical either way)
     cpu = jax.devices("cpu")[0]
     with jax.default_device(cpu):
         topo, model, pmatrix, clv, scalers = _build(newick, sites=sites)
@@ -64,14 +63,12 @@ def run(name, newick_fn, tips, sites):
         fwd = jax.jit(ev.make_forward(topo))
         want = float(fwd(model64, clv.astype(jnp.float64), scalers)[0])
 
-    clv_np = np.asarray(clv[:t])
-    masks = ((clv_np[:, 0] > 0).astype(np.uint32)
-             << np.arange(4, dtype=np.uint32)[None, :, None]).sum(1)
+    masks = tc.tip_masks_from_clv(clv[:t])
     if not CPU:
         dev = jax.devices()[0]
         model = {k: jax.device_put(np.asarray(v), dev)
                  for k, v in model.items()}
-    score = ev.make_score_unbounded(topo, 4, 4, masks, interpret=CPU)
+    score = ev.make_score_unbounded(topo, 4, 4, masks)
     got = float(score(model))
 
     delta = abs(got - want)

@@ -4,9 +4,8 @@
 Optimizes all 2n-3 branch lengths of a random `tips`-taxon tree over
 `sites` random DNA sites with the whole-sweep compiled program
 (engine/blopt.optimize_branch_lengths_scan) and reports per-sweep
-wall-clock.  On this platform one dispatch costs ~40 ms, so the per-edge
-host loop would pay ~4 dispatches x (2n-3) edges per sweep; the scan
-program pays ONE.
+wall-clock.  The per-edge host loop would pay ~4 dispatches x (2n-3)
+edges per sweep; the scan program pays ONE.
 
 Usage: python scripts/bench_blopt.py [tips] [sites] [cpu]
 """

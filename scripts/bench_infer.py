@@ -6,16 +6,15 @@ users assemble by hand from the library's pieces (reference:
 `src/stepwise.c` starting trees + `src/utree_moves.c` SPR loops + the
 newton example's branch-length optimization; the reference ships no
 composed search driver itself) — on simulated data with real
-phylogenetic signal, and reports per-phase wall-clock plus the final
-log-likelihood.
+phylogenetic signal (libpll_tpu/utils/simulate.py), on JAX's default
+backend, and reports per-phase wall-clock plus the final log-likelihood.
 
-Validation: the final tree + branch lengths are re-scored by the compiled
-reference oracle in float64; |Δ logL| must sit inside the published f32
-accuracy budget (2e-6·|logL| + 5e-3).  The reference-side context numbers
-are the phases the reference *does* ship: `pll_fastparsimony_stepwise`
-(starting tree) and one full-tree `pll_update_partials` + edge logL pass.
+Validation: the final tree + branch lengths are re-scored by the plain
+float64 reference on the CPU (libpll_tpu/engine/reference.py); |Δ logL|
+must sit inside the float32 accuracy budget (2e-6·|logL| + 5e-3), or
+1e-6·|logL| for a float64 run.
 
-Usage: python scripts/bench_infer.py [tips] [sites] [platform]
+Usage: python scripts/bench_infer.py [tips] [sites] [float32|float64]
 """
 
 import sys
@@ -23,116 +22,35 @@ import time
 
 tips = int(sys.argv[1]) if len(sys.argv) > 1 else 1024
 sites = int(sys.argv[2]) if len(sys.argv) > 2 else 16384
-platform = sys.argv[3] if len(sys.argv) > 3 else None
-
-import numpy as np
+dtype_name = sys.argv[3] if len(sys.argv) > 3 else "float32"
 
 sys.path.insert(0, ".")
-sys.path.insert(0, "tests")
 
 import jax
-
-if platform:
-    jax.config.update("jax_platforms",
-                  platform if platform == "cpu"
-                  else platform + ",cpu")
-print("platform:", jax.devices()[0].platform, flush=True)
-
 import jax.numpy as jnp
 
-DTYPE = jnp.float64 if jax.devices()[0].platform == "cpu" else jnp.float32
-if DTYPE == jnp.float64:
-    jax.config.update("jax_enable_x64", True)
+import libpll_tpu  # noqa: F401  (x64)
 
-
-def simulate(tips, sites, seed=11):
-    """Evolve DNA down a random binary tree under GTR+Γ4 — data with real
-    signal so the SPR search has work to do (uniform-random data leaves
-    every topology near-equally bad)."""
-    from libpll_tpu.models.gamma import compute_gamma_cats
-
-    rng = np.random.default_rng(seed)
-    freqs = np.array([0.3, 0.25, 0.2, 0.25])
-    params = np.array([1.2, 2.7, 0.8, 1.1, 3.2, 1.0])
-    rates = np.asarray(compute_gamma_cats(0.8, 4))
-
-    # random binary tree by leaf splitting; parents get smaller ids than
-    # their children, so evolving in id order is top-down
-    parent, blen = {0: -1}, {0: 0.0}
-    leaves, next_id = [0], 1
-    while len(leaves) < tips:
-        node = leaves.pop(rng.integers(len(leaves)))
-        for _ in range(2):
-            parent[next_id] = node
-            blen[next_id] = rng.uniform(0.02, 0.4)
-            leaves.append(next_id)
-            next_id += 1
-
-    # generating-topology newick (for the RF-to-truth report)
-    children = {}
-    for node, par in parent.items():
-        if node:
-            children.setdefault(par, []).append(node)
-    leaf_label = {n: f"t{i}" for i, n in enumerate(leaves)}
-
-    def nw(node):
-        if node in leaf_label:
-            return f"{leaf_label[node]}:{blen[node]:.5f}"
-        l, r = children[node]
-        return f"({nw(l)},{nw(r)}):{blen[node]:.5f}"
-
-    l, r = children[0]
-    rl, rr = children[r] if r in children else (None, None)
-    if rl is None:  # root child r is a leaf: expand the left side instead
-        l, r = r, l
-        rl, rr = children[r]
-    truth_newick = f"({nw(l)},{nw(rl)},{nw(rr)});"
-
-    cat = rng.integers(0, 4, sites)  # per-site Γ category
-    seq = {0: rng.choice(4, sites, p=freqs)}
-    # branch lengths are i.i.d. uniform, so bucket them for P-matrix reuse
-    pm_cache = {}
-    for node in range(1, next_id):
-        key = round(blen[node], 3)
-        if key not in pm_cache:
-            pm_cache[key] = np.stack(
-                [expm_gtr(params, freqs, r * key) for r in rates])
-        P = pm_cache[key]                    # [cats, 4, 4]
-        probs = P[cat, seq[parent[node]]]    # [sites, 4]
-        u = rng.random(sites)
-        seq[node] = (probs.cumsum(1) > u[:, None]).argmax(1)
-
-    alpha = np.array(list("ACGT"))
-    return ({f"t{i}": "".join(alpha[seq[n]]) for i, n in enumerate(leaves)},
-            truth_newick)
-
-
-def expm_gtr(params, freqs, t):
-    from scipy.linalg import expm
-    s = np.zeros((4, 4))
-    iu = np.triu_indices(4, 1)
-    s[iu] = params
-    s = s + s.T
-    q = s * freqs[None, :]
-    q[np.diag_indices(4)] = -q.sum(1)
-    q /= -(np.diag(q) * freqs).sum()
-    return expm(q * t)
+print("platform:", jax.devices()[0].platform, jax.devices()[0].device_kind,
+      flush=True)
+DTYPE = jnp.dtype(dtype_name)
 
 
 def main():
     from libpll_tpu.search.infer import infer_tree
+    from libpll_tpu.utils.simulate import ALPHA, simulate_dna
 
     print(f"simulating {tips} x {sites} DNA...", flush=True)
     t0 = time.perf_counter()
-    data, truth_newick = simulate(tips, sites)
+    data, truth_newick = simulate_dna(tips, sites)
     assert len(data) == tips, len(data)
     print(f"  simulated in {time.perf_counter()-t0:.1f}s", flush=True)
 
     t0 = time.perf_counter()
     # min_delta 1e-2: at bench scale (|logL| ~ 1e6-1e7) smaller deltas are
     # Newton-sweep noise and only add no-progress rounds
-    res = infer_tree(data, alpha=0.8, seed=42, dtype=DTYPE, min_delta=1e-2,
-                     spr_batch=128)  # amortize the ~40 ms remote dispatch
+    res = infer_tree(data, alpha=ALPHA, seed=42, dtype=DTYPE, min_delta=1e-2,
+                     spr_batch=128)
     total = time.perf_counter() - t0
     print(f"ours: time-to-tree {total:.1f}s  logL={res.logl:.3f}  "
           f"rounds={res.rounds}  parsimony_start={res.start_parsimony_score}")
@@ -149,54 +67,18 @@ def main():
     print(f"RF distance to generating topology: {rf}/{rf_max} "
           f"(normalized {rf/rf_max:.4f})", flush=True)
 
-    # float64 oracle validation of the final tree
-    import oracle
-    if oracle.available():
-        from libpll_tpu.tree import utree as ut
-        from libpll_tpu.io.compress import compress_site_patterns
-        from libpll_tpu.io import maps as m
-        from libpll_tpu.models.gamma import compute_gamma_cats
+    # float64 reference re-score of the final tree
+    from libpll_tpu.engine.reference import rescore_alignment
 
-        tree = res.tree
-        root = tree.nodes[-1] if not tree.nodes[-1].is_tip else tree.root
-        trav = ut.traverse(root)
-        ops, blens, midx = ut.create_operations(trav)
-        labels = list(data)
-        seqs, weights = compress_site_patterns(
-            [data[l] for l in labels], m.pll_map_nt)
-        ref = oracle.RefPartition(tips, tips - 2, 4, len(seqs[0]), 1,
-                                  2 * tips - 3, 4, tips - 2)
-        order = {n.label: n.clv_index for n in ut.query_tipnodes(tree)}
-        charmap = oracle.map_table("pll_map_nt")
-        for lab, s in zip(labels, seqs):
-            ref.set_tip_states(order[lab], charmap, s)
-        ref.set_pattern_weights(weights)
-        ref.set_frequencies(0, [0.25] * 4)
-        ref.set_subst_params(0, [1.0] * 6)
-        ref.set_category_rates(np.asarray(compute_gamma_cats(0.8, 4)))
-        t0 = time.perf_counter()
-        ref.update_prob_matrices([0] * 4, midx, blens)
-        ref.update_partials([op.as_tuple() for op in ops])
-        want = ref.edge_loglikelihood(
-            root.clv_index, root.scaler_index, root.back.clv_index,
-            root.back.scaler_index, root.pmatrix_index, [0] * 4)
-        t_eval = time.perf_counter() - t0
-        budget = 2e-6 * abs(want) + 5e-3
-        print(f"oracle f64 re-score of our final tree: {want:.3f}  "
-              f"|Δ|={abs(res.logl - want):.4f}  budget={budget:.3f}  "
-              f"(one full f64 eval: {t_eval:.1f}s)")
-        assert abs(res.logl - want) <= max(budget, 1e-6 * abs(want) * 5), \
-            (res.logl, want)
-
-        if tips <= 2048:  # the single-core O(n^2) build takes hours above
-            from test_stepwise import _oracle_stepwise
-            t0 = time.perf_counter()
-            ref_pscore = _oracle_stepwise([data[l] for l in labels],
-                                          labels, 42)
-            t_sw = time.perf_counter() - t0
-            print(f"reference stepwise (1 core): {t_sw:.1f}s  "
-                  f"score={ref_pscore}"
-                  f"  (ours: {res.timings['stepwise']:.1f}s incl. compile)")
+    t0 = time.perf_counter()
+    want = rescore_alignment(res.tree, data, alpha=ALPHA)
+    t_eval = time.perf_counter() - t0
+    budget = (1e-6 * abs(want) if DTYPE == jnp.float64
+              else 2e-6 * abs(want) + 5e-3)
+    print(f"f64 reference re-score of our final tree: {want:.3f}  "
+          f"|Δ|={abs(res.logl - want):.4f}  budget={budget:.3f}  "
+          f"(one f64 CPU eval: {t_eval:.1f}s)")
+    assert abs(res.logl - want) <= budget, (res.logl, want)
 
 
 if __name__ == "__main__":

@@ -1,238 +1,93 @@
 #!/usr/bin/env python3
-"""Scaling-efficiency measurement over a sites-sharded mesh.
+"""Scaling over a sites-sharded mesh.
 
-On TPU hardware this measures real ICI scaling; in this environment only
-one chip exists, so the default run uses XLA's virtual host-platform
-devices (JAX_PLATFORMS=cpu + --xla_force_host_platform_device_count=8) to
-validate the *mechanism*: the sharded forward must produce identical logL
-at every mesh size and its wall-clock should drop as devices are added
-(CPU "devices" are host threads, so efficiency is indicative, not an ICI
-number).
+Times the sharded full-tree forward (make_forward under a 1-D ``sites``
+mesh, the partial log-likelihoods meeting in one psum) on 1, 2, 4, ...
+devices of JAX's default backend, checks that every mesh size gives the
+same logL, and prints ms per evaluation, speedup and efficiency.  With
+``cpu`` it runs on eight virtual CPU devices instead, which checks the
+mechanism only: CPU "devices" share the host's cores.
 
-Prints one line per mesh size: devices, ms/eval, speedup vs 1 device.
+``giant`` scores the 10 240-taxon configuration of BASELINE.json on one
+device with the chunked pattern-tip scorer (make_score_unbounded) and
+prints the peak device memory.
+
+Usage: python scripts/bench_scaling.py [cpu] [giant [sites ...]]
 """
 
 import os
 import sys
 import time
 
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
-if "xla_force_host_platform_device_count" not in os.environ["XLA_FLAGS"]:
-    os.environ["XLA_FLAGS"] += " --xla_force_host_platform_device_count=8"
+if "cpu" in sys.argv[1:]:
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
+                               " --xla_force_host_platform_device_count=8")
 
 import numpy as np
 
 sys.path.insert(0, ".")
 
 import jax
-
-if len(sys.argv) > 1 and sys.argv[1] == "tpu":
-    pass  # keep the platform
-else:
-    jax.config.update("jax_platforms", "cpu")
-
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from __graft_entry__ import _build_flagship
-from libpll_tpu.engine.evaluate import make_forward
+from libpll_tpu.engine.evaluate import make_forward, make_score_unbounded
+from libpll_tpu.utils.profiling import time_jitted
 
 TIPS, SITES = 64, 65536
-REPS = 5
 
 
 def time_mesh(n_dev):
-    devs = np.asarray(jax.devices()[:n_dev])
-    mesh = Mesh(devs, ("sites",))
+    mesh = Mesh(np.asarray(jax.devices()[:n_dev]), ("sites",))
     topo, model, clv, scalers = _build_flagship(TIPS, SITES)
-    shard = NamedSharding(mesh, P(*([None] * 3), "sites"))
-    shard2 = NamedSharding(mesh, P(None, "sites"))
     vec = NamedSharding(mesh, P("sites"))
     repl = NamedSharding(mesh, P())
-    clv = jax.device_put(clv, shard)
-    scalers = jax.device_put(scalers, shard2)
+    clv = jax.device_put(clv, NamedSharding(mesh, P(None, None, None,
+                                                    "sites")))
+    scalers = jax.device_put(scalers, NamedSharding(mesh, P(None, "sites")))
     model = {k: jax.device_put(
         v, vec if k in ("pattern_weights", "invariant") else repl)
         for k, v in model.items()}
     fwd = jax.jit(make_forward(topo))
-    logl, _ = fwd(model, clv, scalers)
-    logl.block_until_ready()
-    t0 = time.perf_counter()
-    for _ in range(REPS):
-        logl, _ = fwd(model, clv, scalers)
-    logl.block_until_ready()
-    dt = (time.perf_counter() - t0) / REPS
-    return float(logl), dt * 1e3
+    logl = float(fwd(model, clv, scalers)[0])
+    return logl, time_jitted(fwd, model, clv, scalers) * 1e3
 
 
 def giant():
-    """The BASELINE.json giant target (10 240 taxa × 1 M sites, ≥2 hosts)
-    validated end to end through the data-driven pattern-tip scorer under
-    shard_map — the exact sharded program of that target.
-
-    CPU (virtual 8-device mesh), two checks:
-      (a) the full 10 240-taxon structure through the *sharded XLA
-          forward* — 1 024 sites over 4- and 8-device meshes must produce
-          identical logL (exercises the real sharding/psum machinery at
-          the target's tree scale; cheap, no interpret);
-      (b) the sharded *dyn pattern-tip scorer* (the exact program of the
-          target) at 2 048 taxa — interpret-mode python cost scales with
-          devices × ops, so the structure check caps taxa here; the
-          kernel itself is schedule-as-data and shape-independent beyond
-          segment count.
-
-    TPU (`bench_scaling.py tpu giant`): the per-device *memory plan* —
-    one chip runs the dyn scorer at 10 240 taxa × 131 072 sites = the
-    exact 1M/8 per-device share of the target, and live HBM-in-use is
-    printed (nibble tip slabs dominate: 10 240 × 131 072 × 0.5 B ≈
-    0.67 GiB/device).
-
-    Host-RAM note: the tip_masks builder stages a [tips, sites] uint32
-    mask array host-side — 40 GiB at the default 10 240 × 1 M TPU target
-    (plus per-segment staging inside pack_tipchars_dyn).  This avoids the
-    ~172 GB full-CLV tensor but still assumes a large-memory host; the
-    mask-array size is logged below so OOMs are diagnosable.
-    """
-    from libpll_tpu.engine.evaluate import (make_forward,
-                                            make_score_unbounded_sharded)
-
-    on_tpu = jax.devices()[0].platform == "tpu"
-
-    def masks_of(topo, clv):
-        t = topo.schedule.tips
-        clv_np = np.asarray(clv[:t])
-        return ((clv_np[:, 0] > 0).astype(np.uint32)
-                << np.arange(4, dtype=np.uint32)[None, :, None]).sum(1)
-
-    def run_sharded_dyn(topo, model0, masks, n):
-        devs = np.asarray(jax.devices()[:n])
-        mesh = Mesh(devs, ("sites",))
-        vec = NamedSharding(mesh, P("sites"))
-        repl = NamedSharding(mesh, P())
-        model = {k: jax.device_put(
-            v, vec if k in ("pattern_weights", "invariant") else repl)
-            for k, v in model0.items()}
-        score = make_score_unbounded_sharded(topo, 4, 4, masks, mesh,
-                                             interpret=not on_tpu)
+    tips = 10240
+    sizes = [int(a) for a in sys.argv[1:] if a.isdigit()] or [131072]
+    dev = jax.devices()[0]
+    for sites in sizes:
+        t0 = time.perf_counter()
+        topo, model, masks, _ = _build_flagship(tips, sites, tip_masks=True)
+        t_build = time.perf_counter() - t0
+        score = jax.jit(make_score_unbounded(topo, 4, 4, masks))
         t0 = time.perf_counter()
         s = float(score(model))
-        return s, time.perf_counter() - t0
-
-    if on_tpu:
-        # tip data synthesized directly as ambiguity masks (tip_masks=True)
-        # — the full-CLV builder would stage ~172 GB host-side at the 1M
-        # target just to derive the nibble slabs.  Single-chip runs use the
-        # plain dyn scorer (the sharded wrapper is the same per-shard
-        # program; its mechanism is exercised by dryrun_multichip and the
-        # CPU branch below).
-        from libpll_tpu.engine.evaluate import make_score_unbounded
-
-        tips = 10240
-        sizes = [int(a) for a in sys.argv[2:] if a.isdigit()] or \
-            [131072, 1048576]
-        for sites in sizes:
-            t0 = time.perf_counter()
-            topo, model0, masks, _ = _build_flagship(tips, sites,
-                                                     tip_masks=True)
-            t_build = time.perf_counter() - t0
-            slab_gib = tips * sites * 0.5 / 2**30  # nibble-packed tips
-            print(f"  host mask staging: {tips * sites * 4 / 2**30:.1f} GiB "
-                  f"uint32 [tips, sites] (tip_masks builder)", flush=True)
-            t0 = time.perf_counter()
-            score = make_score_unbounded(topo, 4, 4, masks)
-            t_pack = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            s = float(score(model0))
-            dt = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            s2 = float(score(model0))
-            dt2 = time.perf_counter() - t0
-            assert abs(s - s2) <= 1e-6 * abs(s), (s, s2)
-            stats = jax.devices()[0].memory_stats() or {}
-            hbm = (f"{stats['bytes_in_use'] / 2**30:.2f} GiB HBM in use"
-                   if "bytes_in_use" in stats else
-                   f"tip slabs {slab_gib:.2f} GiB on device")
-            print(f"giant {tips} x {sites}: logL={s:.3f} "
-                  f"(host build {t_build:.0f}s, pack+schedule {t_pack:.0f}s,"
-                  f" first eval {dt:.1f}s incl. compile, warm eval "
-                  f"{dt2:.2f}s)  {hbm}", flush=True)
-        return
-
-    # (a) 10 240-taxon sharded XLA forward, mesh 4 vs 8, same data
-    tips, sites = 10240, 1024
-    topo, model0, clv, scalers = _build_flagship(tips, sites)
-    results = []
-    for n in (4, 8):
-        devs = np.asarray(jax.devices()[:n])
-        mesh = Mesh(devs, ("sites",))
-        shard = NamedSharding(mesh, P(*([None] * 3), "sites"))
-        shard2 = NamedSharding(mesh, P(None, "sites"))
-        vec = NamedSharding(mesh, P("sites"))
-        repl = NamedSharding(mesh, P())
-        clv_s = jax.device_put(clv, shard)
-        sc_s = jax.device_put(scalers, shard2)
-        model = {k: jax.device_put(
-            v, vec if k in ("pattern_weights", "invariant") else repl)
-            for k, v in model0.items()}
-        fwd = jax.jit(make_forward(topo))
-        t0 = time.perf_counter()
-        logl, _ = fwd(model, clv_s, sc_s)
-        s = float(logl)
-        results.append(s)
-        print(f"giant XLA forward {tips} x {sites} on {n} devices: "
-              f"logL={s:.3f} ({time.perf_counter()-t0:.1f}s incl. compile)",
-              flush=True)
-    assert abs(results[0] - results[1]) <= 1e-6 * abs(results[0]), results
-    print("XLA forward mesh-size invariance at 10 240 taxa: OK", flush=True)
-    del clv, scalers
-
-    # (b) sharded dyn scorer, 2 048 taxa, mesh 4 vs 8, same data
-    tips, sites = 2048, 1024
-    topo, model0, clv, _ = _build_flagship(tips, sites)
-    masks = masks_of(topo, clv)
-    del clv
-    results = []
-    for n in (4, 8):
-        s, dt = run_sharded_dyn(topo, model0, masks, n)
-        results.append(s)
-        print(f"giant dyn score {tips} x {sites} on {n} devices: "
-              f"logL={s:.3f} ({dt:.1f}s incl. compile)", flush=True)
-    assert abs(results[0] - results[1]) <= 1e-6 * abs(results[0]), results
-    print("dyn-scorer mesh-size invariance: OK", flush=True)
-
-    # (c) opt-in FULL-taxa dyn mesh invariance ("giant full"): the exact
-    # sharded pattern-tip program at the complete 10 240-taxon structure,
-    # interpret mode, 1- vs 2-device meshes (the interpreter's python
-    # cost scales with devices x ops: ~2h total; measured 2026-08-19:
-    # logL=-3849335.5 bit-identical on both meshes, 4887s + 2371s)
-    if "full" in sys.argv[1:]:
-        tips, sites = 10240, 256
-        topo, model0, masks, _ = _build_flagship(tips, sites,
-                                                 tip_masks=True)
-        results = []
-        for n in (1, 2):
-            s, dt = run_sharded_dyn(topo, model0, masks, n)
-            results.append(s)
-            print(f"giant dyn score {tips} x {sites} on {n} devices: "
-                  f"logL={s:.3f} ({dt:.0f}s)", flush=True)
-        assert abs(results[0] - results[1]) <= 1e-6 * abs(results[0]), \
-            results
-        print("FULL-taxa dyn mesh invariance: OK", flush=True)
+        t_first = time.perf_counter() - t0
+        ms = time_jitted(score, model, reps=3) * 1e3
+        peak = (dev.memory_stats() or {}).get("peak_bytes_in_use", 0)
+        print(f"giant {tips} x {sites} on {dev.device_kind}: logL={s:.3f} "
+              f"(host build {t_build:.0f} s, first call {t_first:.1f} s "
+              f"incl. compile, {ms:.1f} ms/eval, peak device memory "
+              f"{peak / 2**30:.2f} GiB)", flush=True)
 
 
 def main():
-    base = None
+    dev = jax.devices()[0]
     print(f"config: {TIPS} taxa x {SITES} sites x 4 rate cats, "
-          f"platform={jax.devices()[0].platform}")
-    ref_logl = None
-    for n in (1, 2, 4, 8):
-        if n > len(jax.devices()):
-            break
+          f"{dev.platform} {dev.device_kind}")
+    ref_logl = base = None
+    n = 1
+    while n <= len(jax.devices()):
         logl, ms = time_mesh(n)
         if ref_logl is None:
             ref_logl, base = logl, ms
-        assert abs(logl - ref_logl) < 1e-3 * abs(ref_logl), (logl, ref_logl)
-        print(f"devices={n}  {ms:8.1f} ms/eval  speedup {base / ms:5.2f}x  "
+        assert abs(logl - ref_logl) < 1e-6 * abs(ref_logl), (logl, ref_logl)
+        print(f"devices={n}  {ms:8.3f} ms/eval  speedup {base / ms:5.2f}x  "
               f"efficiency {base / ms / n * 100:5.1f}%")
+        n *= 2
 
 
 if __name__ == "__main__":

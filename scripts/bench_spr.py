@@ -5,7 +5,7 @@ Builds a random `tips`-taxon tree over `sites` random DNA sites, runs
 likelihood SPR rounds with the schedule-as-data incremental scorer
 (search/spr.py) and reports per-round and per-candidate wall-clock plus the
 zero-recompile check — the verdict's "SPR round on a >=1024-taxon tree with
-0 recompiles after warmup" criterion, TPU-measured.
+0 recompiles after warmup" criterion.
 
 Usage: python scripts/bench_spr.py [tips] [sites] [rounds] [radius] [cpu]
 """

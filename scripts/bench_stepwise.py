@@ -33,9 +33,7 @@ sys.path.insert(0, ".")
 
 import jax
 if len(sys.argv) > 3:
-    jax.config.update("jax_platforms",
-                  sys.argv[3] if sys.argv[3] == "cpu"
-                  else sys.argv[3] + ",cpu")
+    jax.config.update("jax_platforms", sys.argv[3])
 print("platform:", jax.devices()[0].platform)
 
 rng = np.random.default_rng(7)

@@ -1,6 +1,6 @@
-"""f32 fast-path accuracy budget (BASELINE.md "accuracy" contract).
+"""f32 fast-path accuracy budget.
 
-The headline perf numbers run float32 with 2**64-unit scaling counters
+The scoring fast paths run float32 with 2**32-unit scaling counters
 while the parity contract is float64; these tests pin the relationship:
 |logL_f32 − logL_f64| must stay within the stated budget
 
@@ -8,9 +8,9 @@ while the parity contract is float64; these tests pin the relationship:
 
 on representative configurations including a deep (caterpillar) tree with
 active scaling.  The budget holds because (a) per-site f32 rounding is a
-random walk over sites, (b) the per-block partial-sum outputs + f64 final
-fold remove the accumulator ulp loss that dominates at large |logL|
-(ops/clv_pallas.sum_block_partials)."""
+random walk over sites, (b) the float64 fold of the per-site (or
+per-block) terms removes the accumulator ulp loss that dominates at large
+|logL| (ops/tipcodes.accurate_sum)."""
 
 import numpy as np
 import pytest
@@ -18,14 +18,11 @@ import pytest
 import jax.numpy as jnp
 
 from libpll_tpu.engine import evaluate as ev
-from libpll_tpu.ops import clv_pallas as cp
+from libpll_tpu.ops import tipcodes as tc
+from libpll_tpu.utils.simulate import caterpillar_newick as _caterpillar_newick
+from libpll_tpu.utils.simulate import random_tree_newick as _random_tree_newick
 
-from test_clv_pallas import _caterpillar_newick, _random_tree_newick
-from test_clv_pallas_seg import _build
-
-# the published budget (also asserted at TPU scale by scripts/bench_accuracy)
-ACC_REL = 2e-6
-ACC_ABS = 5e-3
+from score_cases import ACC_ABS, ACC_REL, PATHS, _build, _use
 
 
 def _f64_model(model):
@@ -38,11 +35,14 @@ def _f64_model(model):
     return out
 
 
+@pytest.mark.parametrize("path", PATHS)
 @pytest.mark.parametrize("newick_fn,tips,sites", [
     (_random_tree_newick, 24, 2048),
     (_caterpillar_newick, 48, 512),   # deep chain: scaling events in f32
 ])
-def test_f32_score_accuracy_budget(newick_fn, tips, sites):
+def test_f32_score_accuracy_budget(newick_fn, tips, sites, path,
+                                   monkeypatch):
+    built = _use(path, monkeypatch)
     rng = np.random.default_rng(tips)
     newick = (newick_fn(tips, rng) if newick_fn is _random_tree_newick
               else newick_fn(tips))
@@ -54,28 +54,28 @@ def test_f32_score_accuracy_budget(newick_fn, tips, sites):
     want, _ = fwd(_f64_model(model), clv.astype(jnp.float64), scalers)
     want = float(want)
 
-    # float32 fused score kernel (interpret mode on CPU)
-    score = ev.make_score(topo, 4, 4, impl="vpu", interpret=True)
-    got = float(score(model, cp.pack_tips(clv[:t], "vpu")))
+    # float32 score
+    score = ev.make_score(topo, 4, 4)
+    got = float(score(model, clv[:t]))
 
     budget = ACC_REL * abs(want) + ACC_ABS
     assert abs(got - want) <= budget, (got, want, budget)
 
-    # float32 dyn (pattern-tip) scorer
-    clv_np = np.asarray(clv[:t])
-    masks = ((clv_np[:, 0] > 0).astype(np.uint32)
-             << np.arange(4, dtype=np.uint32)[None, :, None]).sum(1)
-    score_u = ev.make_score_unbounded(topo, 4, 4, masks, interpret=True)
+    # float32 pattern-tip scorer
+    masks = tc.tip_masks_from_clv(clv[:t])
+    score_u = ev.make_score_unbounded(topo, 4, 4, masks)
     got_u = float(score_u(model))
     assert abs(got_u - want) <= budget, (got_u, want, budget)
+    # the kernel takes the unbounded scorer's slab in one launch
+    assert len(built) == 2 * (path == "kernel")
 
 
 def test_f32_score_accuracy_budget_per_rate():
     """Budget row for SCALE_PER_RATE (the reference's ≥10k-taxa mode,
     core_likelihood.c:916-941): deep caterpillar so the per-rate counters
-    actually diverge across categories.  The fused Pallas scorers are
-    per-site-only by deliberate scope (clv_pallas.make_fused_edge_score),
-    so the f32 vehicle here is the XLA forward path — the path per-rate
+    actually diverge across categories.  The GPU score kernel is
+    per-site-only by deliberate scope (ops/score_kernel.py), so the f32
+    vehicle here is the XLA forward path — the path per-rate
     configurations actually run."""
     from libpll_tpu.utils.constants import SCALE_PER_RATE
 
@@ -91,9 +91,11 @@ def test_f32_score_accuracy_budget_per_rate():
     assert abs(got - want) <= budget, (got, want, budget)
 
 
-def test_f32_score_accuracy_budget_protein():
-    """Budget row for the 20-state MXU block-diag path (the protein half of
-    the model zoo; reference counterpart core_partials_avx2.c 20x20)."""
+@pytest.mark.parametrize("path", PATHS)
+def test_f32_score_accuracy_budget_protein(path, monkeypatch):
+    """Budget row for the 20-state score (the protein half of the model
+    zoo; reference counterpart core_partials_avx2.c 20x20)."""
+    _use(path, monkeypatch)
     tips, sites, states = 16, 256, 20
     rng = np.random.default_rng(20)
     topo, model, pmatrix, clv, scalers = _build(
@@ -103,8 +105,8 @@ def test_f32_score_accuracy_budget_protein():
     fwd = ev.make_forward(topo)
     want = float(fwd(_f64_model(model), clv.astype(jnp.float64), scalers)[0])
 
-    score = ev.make_score(topo, 4, states, impl="mxu", interpret=True)
-    got = float(score(model, cp.pack_tips(clv[:t], "mxu")))
+    score = ev.make_score(topo, 4, states)
+    got = float(score(model, clv[:t]))
 
     budget = ACC_REL * abs(want) + ACC_ABS
     assert abs(got - want) <= budget, (got, want, budget)
@@ -114,7 +116,7 @@ def test_block_partial_fold_is_f64_under_x64():
     """The global site fold must run in f64 when x64 is enabled — the
     f32-accumulator ulp loss would otherwise dominate at |logL| ~ 1e7."""
     parts = jnp.full((4096,), np.float32(-2441.406))  # |sum| ~ 1e7
-    total = cp.sum_block_partials(parts)
+    total = tc.accurate_sum(parts)
     assert total.dtype == jnp.float64
     np.testing.assert_allclose(float(total), 4096 * float(parts[0]),
                                rtol=1e-12)
@@ -122,9 +124,7 @@ def test_block_partial_fold_is_f64_under_x64():
 
 def test_f32_accuracy_budget_deep_partition():
     """Deep-tree budget row through the Partition API (the giant-tree
-    path): 1024-taxon caterpillar, f32 vs f64, both scaling modes.
-    BASELINE.md round 3 extends this probe to 4096 taxa (error there is
-    4% of budget)."""
+    path): 1024-taxon caterpillar, f32 vs f64, both scaling modes."""
     import jax
     if not jax.config.read("jax_enable_x64"):
         pytest.skip("needs x64 for the f64 truth")
@@ -168,29 +168,3 @@ def test_f32_accuracy_budget_deep_partition():
         budget = ACC_REL * abs(want) + ACC_ABS
         assert abs(got - want) <= budget, (scaling, got, want, budget)
 
-
-def test_mxu_precision_high_plumbing():
-    """The opt-in "high" (bf16x3) MXU precision must thread through the
-    fused and dyn protein scorers; on CPU interpret backends high==highest
-    numerically, so this pins plumbing + parity (the real accuracy delta
-    is measured on-chip by scripts/bench_protein.py)."""
-    tips, sites, states = 12, 128, 20
-    rng = np.random.default_rng(3)
-    topo, model, pmatrix, clv, scalers = _build(
-        _random_tree_newick(tips, rng), sites=sites, states=states, seed=3)
-    t = topo.schedule.tips
-
-    base = ev.make_score(topo, 4, states, impl="mxu", interpret=True)
-    want = float(base(model, cp.pack_tips(clv[:t], "mxu")))
-
-    hi = ev.make_score(topo, 4, states, impl="mxu", mxu_precision="high",
-                       interpret=True)
-    got = float(hi(model, cp.pack_tips(clv[:t], "mxu")))
-    np.testing.assert_allclose(got, want, rtol=1e-5)
-
-    clv_np = np.asarray(clv[:t])
-    masks = ((clv_np[:, 0] > 0).astype(np.uint32)
-             << np.arange(states, dtype=np.uint32)[None, :, None]).sum(1)
-    dyn_hi = ev.make_score_unbounded(topo, 4, states, masks,
-                                     mxu_precision="high", interpret=True)
-    np.testing.assert_allclose(float(dyn_hi(model)), want, rtol=1e-4)

@@ -2,8 +2,8 @@
 path used by the giant-config benchmarks: ambiguity bitmasks instead of a
 materialized [nodes, rates, states, sites] CLV tensor) must be semantically
 identical to the CLV mode: decoding its masks to one-hot tip CLVs and
-running the XLA forward must reproduce the dyn pattern-tip scorer's logL on
-the same topology/model.
+running the level-sweep forward must reproduce the pattern-tip scorer's
+logL on the same topology/model.
 """
 
 import numpy as np
@@ -27,7 +27,7 @@ def test_tip_masks_builder_matches_clv_semantics():
     assert masks.shape == (tips, sites) and masks.dtype == np.uint32
     assert masks.min() >= 1 and masks.max() <= 0x8  # single-state draws
 
-    # decode masks -> one-hot tip CLVs, run the XLA forward
+    # decode masks -> one-hot tip CLVs, run the level-sweep forward
     nodes = 2 * tips - 2
     clv = np.zeros((nodes, rate_cats, states, sites), np.float32)
     for s in range(states):
@@ -35,9 +35,8 @@ def test_tip_masks_builder_matches_clv_semantics():
     scalers = jnp.zeros((topo.schedule.n_inner + 1, sites), jnp.int32)
     logl_fwd, _ = make_forward(topo)(model, jnp.asarray(clv), scalers)
 
-    # the dyn pattern-tip scorer on the masks themselves
-    score = make_score_unbounded(topo, rate_cats, states, masks,
-                                 interpret=True)
+    # the pattern-tip scorer on the masks themselves
+    score = make_score_unbounded(topo, rate_cats, states, masks)
     logl_dyn = float(score(model))
 
     assert abs(float(logl_fwd) - logl_dyn) <= 1e-6 * abs(logl_dyn) + 1e-3

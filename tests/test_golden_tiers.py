@@ -1,474 +1,131 @@
-"""Golden × kernel-tier matrix: the reference's committed golden outputs
-pin every fast kernel tier DIRECTLY, not just the XLA f64 path.
+"""Golden outputs × scoring paths: the reference's committed golden
+outputs pin the scoring wrappers directly, on both implementations (the
+XLA level sweep and the GPU score kernel, the latter in Pallas interpret
+mode here), not just the float64 path of the sibling golden modules.
 
-The reference's core testing discipline runs every kernel implementation
-against the same golden file — 8 attribute combinations per test
-(`/root/reference/test/runtest.py:43-52`, `test/src/common.c:22-56`:
-{generic, SSE, AVX, AVX2} × {tip-CLV, pattern-tip}).  This module is the
-rebuild's equivalent: each replicable golden program from
-tests/test_golden.py / test_golden_suite.py is re-run under the three
-Pallas tiers
-
-  * fused      — single-VMEM-slab sweep (ops/clv_pallas.py)
-  * seg        — segmented sweep, tiny row budget forcing real cuts
-                 (ops/clv_pallas_seg.py)
-  * dyn        — schedule-as-data sweep (ops/clv_pallas_dyn.py)
-
-plus the two in-kernel edge-score paths (fused score with tip-CLV and
-nibble/mask pattern-tip encodings; dyn score via make_score_unbounded) and
-asserted against the SAME golden numbers at the f32 accuracy budget
-(|Δ| ≤ 2e-6·|logL| + small abs; the XLA f64 path in the sibling modules
-asserts at print precision).  Kernels run in interpreter mode on CPU —
-compiled on TPU the tiers are cross-checked by tests/test_clv_pallas*.py.
-
-Grid programs (hky, alpha-cats, 00030/00032 gamma) are pinned on a
-representative subset of grid points per tier (interpret mode is slow);
-the full grids stay covered at f64 in test_golden_suite.py.
+The reference's testing discipline runs every kernel implementation
+against the same golden file (`test/runtest.py:43-52`,
+`test/src/common.c:22-56`: {generic, SSE, AVX, AVX2} × {tip-CLV,
+pattern-tip}).  Here the two in-kernel edge-score entry points are re-run
+on the 0001x lkcalc programs — make_score with tip CLVs and
+make_score_unbounded with pattern tips — and asserted against the golden
+inner-inner logL at the float32 budget (|Δ| ≤ 2e-6·|logL| + small abs).
 """
-
-import os
-import re
 
 import numpy as np
 import pytest
 
-GOLDEN_DIR = os.environ.get("LIBPLL_GOLDEN_DIR", "/root/reference/test/out")
-
-if not os.path.isdir(GOLDEN_DIR):
-    pytest.skip("golden outputs unavailable", allow_module_level=True)
+# skips this module with test_golden_suite's when the golden outputs are
+# not present
+from test_golden_suite import (AA_SEQS, ODD7_FREQS, ODD7_MAP, ODD7_SEQS,
+                               ODD7_SUBST, _golden, _grab_all)
 
 import jax.numpy as jnp
 
-from libpll_tpu.engine.evaluate import EvalTopology, make_score
+from libpll_tpu.engine.evaluate import (EvalTopology, make_score,
+                                        make_score_unbounded)
+from libpll_tpu.engine.reference import tip_clv_from_masks
 from libpll_tpu.io import maps
 from libpll_tpu.models import aa_tables
 from libpll_tpu.models.gamma import compute_gamma_cats
 from libpll_tpu.models.gtr import eigen_decompose
-from libpll_tpu.ops import clv_pallas as cp
-from libpll_tpu.ops import clv_pallas_dyn as cpd
-from libpll_tpu.ops import clv_pallas_seg as cps
-from libpll_tpu.ops import likelihood as lk_ops
-from libpll_tpu.ops.pmatrix import compute_pmatrices
 from libpll_tpu.ops.sweep import build_level_schedule
 from libpll_tpu.utils.constants import SCALE_PER_SITE
 
-from test_golden_suite import (AA_SEQS, ODD7_FREQS, ODD7_MAP, ODD7_SEQS,
-                               ODD7_SUBST, _golden, _grab_all,
-                               _persite_blocks)
-
-TIERS = ("fused", "seg", "dyn")
+from score_cases import PATHS, _use
 
 DNA_SEQS = ["WAC-CTA-ATCT", "CCC-TTA-ATGT", "A-C-TAG-CTCT",
             "CTCTTAA-A-CG", "CAC-TCA-A-TG"]
 
-# the 0001x/0002x op programs with the tip-inner re-roots RENUMBERED to
-# fresh rows (the tier sweeps write each inner row exactly once; the
-# reference programs overwrite rows 7/8 in place):
-#   5 <- (0 m1, 1 m1); 6 <- (5 m0, 2 m1); 7 <- (3 m1, 4 m1)   [unrooted]
-#   8 <- (6 m0, 3 m1)                                          [re-root]
-#   9 <- (7 m2, 6 m3)                                          [root]
-#  10 <- (8 m2, 4 m3)                                          [re-rooted root]
-OPS_ALL = [
+# the unrooted half of the 0001x op programs: the inner-inner evaluation
+# edge is (6, 7) over matrix 0
+#   5 <- (0 m1, 1 m1); 6 <- (5 m0, 2 m1); 7 <- (3 m1, 4 m1)
+OPS = [
     (5, 0, 0, 1, -1, 1, 1, -1),
     (6, 1, 5, 0, 0, 2, 1, -1),
     (7, 2, 3, 1, -1, 4, 1, -1),
-    (8, 3, 6, 0, 1, 3, 1, -1),
-    (9, 4, 7, 2, 2, 6, 3, 1),
-    (10, 5, 8, 2, 3, 4, 3, -1),
 ]
+BRANCHES = [0.1, 0.2, 1, 1]
+CATS, ALPHA = 4, 0.5
+
+_DNA = dict(states=4, sites=12, seqs=DNA_SEQS, charmap=maps.pll_map_nt,
+            freqs=[0.3, 0.4, 0.1, 0.2], subst=[1, 2.5, 1, 1, 2.5, 1])
+_AA = dict(states=20, sites=15, seqs=AA_SEQS, charmap=maps.pll_map_aa,
+           freqs=aa_tables.AA_FREQS_DAYHOFF,
+           subst=aa_tables.AA_RATES_DAYHOFF)
+_ODD7 = dict(states=7, sites=12, seqs=ODD7_SEQS, charmap=ODD7_MAP,
+             freqs=ODD7_FREQS, subst=ODD7_SUBST)
+
+_PROGRAMS = pytest.mark.parametrize("cfg,golden_name", [
+    (_DNA, "00010_NMDU_lkcalc.out"),
+    (_AA, "00011_NMAU_lkcalc.out"),
+    (_ODD7, "00012_NMOU_lkcalc.out"),
+], ids=["dna", "protein", "odd7"])
 
 
 def _logl_tol(want):
     return 2e-6 * abs(want) + 2e-3
 
 
-def _tip_clv(seqs, charmap, states, cats, sites):
-    tips = len(seqs)
-    clv = np.zeros((tips, cats, states, sites), np.float32)
-    for t, s in enumerate(seqs):
-        for n, ch in enumerate(s[:sites]):
-            mask = int(charmap[ord(ch)])
-            for k in range(states):
-                if (mask >> k) & 1:
-                    clv[t, :, k, n] = 1.0
-    masks = np.array([[int(charmap[ord(ch)]) for ch in s[:sites]]
-                      for s in seqs], np.uint32)
-    return jnp.asarray(clv), masks
+def _want(golden_name):
+    golden = _golden(golden_name)
+    return float(_grab_all(r"inner-inner logL: (-?\d+\.\d+)", golden)[0])
 
 
-def _model(states, cats, freqs, subst, branches, alpha=0.5, sites=12):
+def _program(states, sites, seqs, charmap, freqs, subst):
+    """(topo, model, tip masks [tips, sites]) of one 5-taxon program."""
+    schedule = build_level_schedule(OPS, 5)
+    topo = EvalTopology(
+        schedule=schedule, matrix_indices=np.arange(4, dtype=np.int32),
+        n_pmatrices=4, parent_clv=schedule.clv_map[6],
+        child_clv=schedule.clv_map[7], edge_matrix=0, sites=sites,
+        scale_mode=SCALE_PER_SITE)
     w, left, right = eigen_decompose(np.asarray(subst, float),
                                      np.asarray(freqs, float))
-    rates = compute_gamma_cats(alpha, cats)
     dt = jnp.float32
-    return {
-        "branch_lengths": jnp.asarray(branches, dt),
-        "rates": jnp.asarray(rates, dt),
+    model = {
+        "branch_lengths": jnp.asarray(BRANCHES, dt),
+        "rates": jnp.asarray(compute_gamma_cats(ALPHA, CATS), dt),
         "prop_invar": jnp.zeros((1,), dt),
-        "params_indices": jnp.zeros(cats, np.int32),
+        "params_indices": jnp.zeros(CATS, np.int32),
         "eigenvals": jnp.asarray(w[None], dt),
         "left": jnp.asarray(left[None], dt),
         "right": jnp.asarray(right[None], dt),
-        "freqs_pc": jnp.asarray(np.broadcast_to(freqs, (cats, states)), dt),
-        "prop_invar_pc": jnp.zeros((cats,), dt),
-        "rate_weights": jnp.full((cats,), 1.0 / cats, dt),
+        "freqs_pc": jnp.asarray(np.broadcast_to(freqs, (CATS, states)), dt),
+        "prop_invar_pc": jnp.zeros((CATS,), dt),
+        "rate_weights": jnp.full((CATS,), 1.0 / CATS, dt),
         "pattern_weights": jnp.ones((sites,), dt),
         "invariant": jnp.full((sites,), -1, jnp.int32),
     }
+    masks = np.array([[int(charmap[ord(ch)]) for ch in s[:sites]]
+                      for s in seqs], np.uint32)
+    return topo, model, masks
 
 
-def _pmx(model, cats):
-    return compute_pmatrices(
-        model["branch_lengths"], model["rates"], model["prop_invar"],
-        model["params_indices"], model["eigenvals"], model["left"],
-        model["right"], dtype=jnp.float32)
+@pytest.mark.parametrize("path", PATHS)
+@_PROGRAMS
+def test_fused_edge_score_kernel_vs_golden(cfg, golden_name, path,
+                                           monkeypatch):
+    """make_score (edge score with tip CLVs) vs the golden."""
+    built = _use(path, monkeypatch)
+    want = _want(golden_name)
+    topo, model, masks = _program(**cfg)
+    tip_clv = jnp.asarray(tip_clv_from_masks(masks, CATS, cfg["states"]),
+                          jnp.float32)
+    got = float(make_score(topo, CATS, cfg["states"])(model, tip_clv))
+    np.testing.assert_allclose(got, want, atol=_logl_tol(want))
+    assert len(built) == (path == "kernel")
 
 
-def _tier_sweep(tier, schedule, tip_clv, pmatrix, cats, states):
-    """Run one tier's pruning sweep; return level-major (clv, scalers)
-    with tips included and the dummy scaler row last."""
-    tips, n_inner = schedule.tips, schedule.n_inner
-    L = tip_clv.shape[-1]
-    impl = "vpu" if states <= 8 else "mxu"
-    # seg/dyn pack raw tip CLVs; pad the site axis to the 128-lane block
-    # with all-ones (gap-tip) columns, as pad_sites_packed does for fused
-    pad = -L % 128
-    tip_pad = jnp.concatenate(
-        [tip_clv, jnp.ones(tip_clv.shape[:-1] + (pad,), tip_clv.dtype)],
-        axis=-1) if pad else tip_clv
-    if tier == "fused":
-        packed = cp.pad_sites_packed(cp.pack_tips(tip_clv, impl), 128)
-        sweep = cp.make_fused_sweep(schedule, SCALE_PER_SITE, impl=impl,
-                                    rate_cats=cats, states=states,
-                                    block_sites=128, interpret=True)
-        inner, scal = sweep(packed, pmatrix)
-        row = lambda r: inner[r]
-        srow = lambda r: scal[r]
-    elif tier == "seg":
-        seg = cps.build_segmented_schedule(
-            schedule, rate_cats=cats, states=states, max_rows=4,
-            ensure_rows=list(range(tips, tips + n_inner)))
-        packed = cps.pack_tips_segmented(tip_pad, seg, impl)
-        sweep = cps.make_segmented_sweep(seg, SCALE_PER_SITE, impl=impl,
-                                         rate_cats=cats, states=states,
-                                         block_sites=128, interpret=True)
-        inner, scal = sweep(packed, pmatrix)
-        row = lambda r: inner[seg.inner_row(r)]
-        srow = lambda r: scal[seg.scaler_row(r)]
-    else:
-        dyn = cpd.build_dyn_schedule(
-            schedule, rate_cats=cats, states=states, max_rows=4, chunk=2,
-            ensure_rows=list(range(tips, tips + n_inner)))
-        slabs = cpd.pack_tips_dyn(tip_pad, dyn, impl)
-        tables, m_g = cpd.dyn_runtime_args(dyn)
-        sweep = cpd.make_dyn_sweep(dyn, SCALE_PER_SITE, rate_cats=cats,
-                                   states=states, impl=impl, interpret=True)
-        inner, scal = sweep(slabs, tables, m_g, pmatrix)
-        row = lambda r: inner[dyn.inner_row(r)]
-        srow = lambda r: scal[dyn.scaler_row(r)]
-
-    clv = np.zeros((tips + n_inner, cats, states, L), np.float32)
-    clv[:tips] = np.asarray(tip_clv)
-    scalers = np.zeros((n_inner + 1, L), np.int32)
-    for r in range(n_inner):
-        clv[tips + r] = np.asarray(
-            cp.unpack_clv(row(r), cats, states, impl))[..., :L]
-        scalers[r] = np.asarray(srow(r))[..., :L]
-    return jnp.asarray(clv), jnp.asarray(scalers)
-
-
-def _edge_fold(model, schedule, clv, scalers, pmatrix, parent, child, midx,
-               sites):
-    pr, cr = schedule.clv_map[parent], schedule.clv_map[child]
-    tips, n_inner = schedule.tips, schedule.n_inner
-    sp = pr - tips if pr >= tips else n_inner
-    sc = cr - tips if cr >= tips else n_inner
-    return lk_ops.edge_loglikelihood(
-        clv[pr], clv[cr], scalers[sp], scalers[sc], pmatrix[midx],
-        model["freqs_pc"], model["rate_weights"], model["pattern_weights"],
-        model["prop_invar_pc"], model["invariant"], sites=sites)
-
-
-def _root_fold(model, schedule, clv, scalers, node, sites):
-    r = schedule.clv_map[node]
-    tips, n_inner = schedule.tips, schedule.n_inner
-    s = r - tips if r >= tips else n_inner
-    return lk_ops.root_loglikelihood(
-        clv[r], scalers[s], model["freqs_pc"], model["rate_weights"],
-        model["pattern_weights"], model["prop_invar_pc"],
-        model["invariant"], sites=sites)
-
-
-def _check(got, want, persite_want=None, persite_got=None):
-    np.testing.assert_allclose(float(got), want, atol=_logl_tol(want))
-    if persite_want is not None:
-        np.testing.assert_allclose(np.asarray(persite_got), persite_want,
-                                   rtol=5e-5, atol=5e-4)
-
-
-class _Program:
-    """One 0001x/0002x-style 5-taxon program: all four golden evaluations
-    (unrooted inner-inner + tip-inner, rooted + re-rooted root) from ONE
-    tier sweep over the renumbered op list."""
-
-    def __init__(self, states, sites, seqs, charmap, freqs, subst,
-                 branches_u, branches_r, cats=4, alpha=0.5):
-        self.states, self.sites, self.cats = states, sites, cats
-        self.schedule = build_level_schedule(OPS_ALL, 5)
-        self.tip_clv, self.masks = _tip_clv(seqs, charmap, states, cats,
-                                            sites)
-        self.model_u = _model(states, cats, freqs, subst, branches_u,
-                              alpha, sites)
-        self.model_r = _model(states, cats, freqs, subst, branches_r,
-                              alpha, sites)
-
-    def run(self, tier, model):
-        pmx = _pmx(model, self.cats)
-        clv, scal = _tier_sweep(tier, self.schedule, self.tip_clv, pmx,
-                                self.cats, self.states)
-        return pmx, clv, scal
-
-    def unrooted_logls(self, tier):
-        m = self.model_u
-        pmx, clv, scal = self.run(tier, m)
-        ii, ps_ii = _edge_fold(m, self.schedule, clv, scal, pmx, 6, 7, 0,
-                               self.sites)
-        ti, ps_ti = _edge_fold(m, self.schedule, clv, scal, pmx, 8, 4, 1,
-                               self.sites)
-        return (ii, ps_ii), (ti, ps_ti)
-
-    def rooted_logls(self, tier):
-        m = self.model_r
-        pmx, clv, scal = self.run(tier, m)
-        ii, ps_ii = _root_fold(m, self.schedule, clv, scal, 9, self.sites)
-        ti, ps_ti = _root_fold(m, self.schedule, clv, scal, 10, self.sites)
-        return (ii, ps_ii), (ti, ps_ti)
-
-
-def _lkcalc_expect(golden):
-    ii = float(_grab_all(r"inner-inner logL: (-?\d+\.\d+)", golden)[0])
-    ti = float(_grab_all(r"tip-inner logL:\s+(-?\d+\.\d+)", golden)[0])
-    return ii, ti, _persite_blocks(golden)
-
-
-_DNA = dict(states=4, sites=12, seqs=DNA_SEQS, charmap=maps.pll_map_nt,
-            freqs=[0.3, 0.4, 0.1, 0.2],
-            subst=[1, 2.5, 1, 1, 2.5, 1],
-            branches_u=[0.1, 0.2, 1, 1], branches_r=[0.5, 0.5, 0.3, 0.2])
-_AA = dict(states=20, sites=15, seqs=AA_SEQS, charmap=maps.pll_map_aa,
-           freqs=aa_tables.AA_FREQS_DAYHOFF,
-           subst=aa_tables.AA_RATES_DAYHOFF,
-           branches_u=[0.1, 0.2, 1, 1], branches_r=[0.5, 0.5, 0.3, 0.2])
-_ODD7 = dict(states=7, sites=12, seqs=ODD7_SEQS, charmap=ODD7_MAP,
-             freqs=ODD7_FREQS, subst=ODD7_SUBST,
-             branches_u=[0.1, 0.2, 1, 1], branches_r=[0.5, 0.5, 0.3, 0.2])
-
-
-@pytest.mark.parametrize("tier", TIERS)
-@pytest.mark.parametrize("cfg,golden_name", [
-    (_DNA, "00010_NMDU_lkcalc.out"),
-    (_AA, "00011_NMAU_lkcalc.out"),
-    (_ODD7, "00012_NMOU_lkcalc.out"),
-], ids=["dna", "protein", "odd7"])
-def test_lkcalc_unrooted_tier(cfg, golden_name, tier):
-    golden = _golden(golden_name)
-    want_ii, want_ti, blocks = _lkcalc_expect(golden)
-    # protein goldens evaluate tip-inner on 12 sites after a 15-site
-    # inner-inner (test/src/00011: sites reset); replicate by slicing
-    prog = _Program(**cfg)
-    (ii, ps_ii), (ti, ps_ti) = prog.unrooted_logls(tier)
-    _check(ii, want_ii, blocks[0], ps_ii)
-    _check(ti, want_ti, blocks[1], ps_ti)
-
-
-@pytest.mark.parametrize("tier", TIERS)
-@pytest.mark.parametrize("cfg,golden_name", [
-    (_DNA, "00020_NMDR_lkcalc.out"),
-    (_AA, "00021_NMAR_lkcalc.out"),
-    (_ODD7, "00022_NMOR_lkcalc.out"),
-], ids=["dna", "protein", "odd7"])
-def test_lkcalc_rooted_tier(cfg, golden_name, tier):
-    golden = _golden(golden_name)
-    want_ii, want_ti, blocks = _lkcalc_expect(golden)
-    cfg = dict(cfg)
-    if cfg["states"] == 20:
-        cfg["sites"] = 12  # rooted protein golden runs on 12 sites
-    prog = _Program(**cfg)
-    (ii, ps_ii), (ti, ps_ti) = prog.rooted_logls(tier)
-    _check(ii, want_ii, blocks[0], ps_ii)
-    _check(ti, want_ti, blocks[1], ps_ti)
-
-
-# ---------------------------------------------------------------------
-# in-kernel edge-score paths (the search fast paths) vs the same goldens
-# ---------------------------------------------------------------------
-
-def _score_topo(prog):
-    sch = prog.schedule
-    return EvalTopology(
-        schedule=sch, matrix_indices=np.arange(6, dtype=np.int32),
-        n_pmatrices=6, parent_clv=sch.clv_map[6], child_clv=sch.clv_map[7],
-        edge_matrix=0, sites=prog.sites, scale_mode=SCALE_PER_SITE)
-
-
-def _score_model(prog):
-    m = dict(prog.model_u)
-    # matrix ids 4/5 are unused by the (6,7,m0) eval but must exist
-    m["branch_lengths"] = jnp.concatenate(
-        [m["branch_lengths"], jnp.ones((2,), jnp.float32)])
-    # the in-kernel scorers stream the full 128-padded site axis: pad the
-    # weight vector with zero-weight columns so padding contributes nothing
-    pad = -prog.sites % 128
-    m["pattern_weights"] = jnp.concatenate(
-        [m["pattern_weights"], jnp.zeros((pad,), jnp.float32)])
-    m["invariant"] = jnp.concatenate(
-        [m["invariant"], jnp.full((pad,), -1, jnp.int32)])
-    return m
-
-
-def _padded_masks(prog):
-    """Tip ambiguity masks padded to the 128-site kernel block with
-    all-ones (gap) columns."""
-    pad = -prog.sites % 128
-    gap = np.full((prog.masks.shape[0], pad),
-                  (1 << prog.states) - 1, np.uint32)
-    return np.concatenate([prog.masks, gap], axis=1)
-
-
-@pytest.mark.parametrize("cfg,golden_name", [
-    (_DNA, "00010_NMDU_lkcalc.out"),
-    (_AA, "00011_NMAU_lkcalc.out"),
-    (_ODD7, "00012_NMOU_lkcalc.out"),
-], ids=["dna", "protein", "odd7"])
-def test_fused_edge_score_kernel_vs_golden(cfg, golden_name):
-    """make_score (in-kernel edge fold, tip-CLV encoding) vs the golden."""
-    golden = _golden(golden_name)
-    want_ii = float(_grab_all(r"inner-inner logL: (-?\d+\.\d+)", golden)[0])
-    prog = _Program(**cfg)
-    topo = _score_topo(prog)
-    score = make_score(topo, prog.cats, prog.states, interpret=True)
-    tp = cp.pad_sites_packed(
-        cp.pack_tips(prog.tip_clv, "vpu" if prog.states <= 8 else "mxu"),
-        128)
-    got = float(score(_score_model(prog), tp))
-    np.testing.assert_allclose(got, want_ii, atol=_logl_tol(want_ii))
-
-
-@pytest.mark.parametrize("cfg,golden_name", [
-    (_DNA, "00010_NMDU_lkcalc.out"),
-    (_AA, "00011_NMAU_lkcalc.out"),
-    (_ODD7, "00012_NMOU_lkcalc.out"),
-], ids=["dna", "protein", "odd7"])
-def test_dyn_pattern_tip_score_vs_golden(cfg, golden_name):
-    """make_score_unbounded (dyn in-kernel score, nibble/mask pattern
-    tips decoded in VMEM) vs the golden."""
-    from libpll_tpu.engine.evaluate import make_score_unbounded
-
-    golden = _golden(golden_name)
-    want_ii = float(_grab_all(r"inner-inner logL: (-?\d+\.\d+)", golden)[0])
-    prog = _Program(**cfg)
-    topo = _score_topo(prog)
-    score = make_score_unbounded(topo, prog.cats, prog.states,
-                                 _padded_masks(prog), interpret=True)
-    got = float(score(_score_model(prog)))
-    np.testing.assert_allclose(got, want_ii, atol=_logl_tol(want_ii))
-
-
-# ---------------------------------------------------------------------
-# grid programs: representative subset per tier
-# ---------------------------------------------------------------------
-
-def test_hky_grid_subset_tiers():
-    """hky.c golden (10 ti/tv ratios): ratios {0.175, 2.725, 9.7365} under
-    all three tiers (full grid at f64 in test_golden_suite.py)."""
-    from test_golden_suite import DNA20_SEQS
-
-    golden = _golden("hky.out")
-    rows = _grab_all(r"ti/tv:\s+(-?\d+\.\d+)\s+logL:\s+(-?\d+\.\d+)", golden)
-    want = {float(r): float(v) for r, v in rows}
-    for titv in (0.175, 2.725, 9.7365):
-        cfg = dict(_DNA, sites=20, seqs=DNA20_SEQS, alpha=1.0,
-                   subst=[1, titv, 1, 1, titv, 1])
-        prog = _Program(**cfg)
-        for tier in TIERS:
-            (ii, _), _ = prog.unrooted_logls(tier)
-            np.testing.assert_allclose(
-                float(ii), want[titv], atol=_logl_tol(want[titv]),
-                err_msg=f"titv={titv} tier={tier}")
-
-
-@pytest.mark.parametrize("tier", TIERS)
-def test_derivatives_subset_tier(tier):
-    """derivatives.c golden: the (alpha=0.75, 4 cats, pinv=0) section's
-    inner-edge rows at t ∈ {0.1, 0.5, 1.5} with the CLVs produced by the
-    tier under test (sumtable/derivative fold at f64 on top, so the
-    assertion isolates the tier's CLV accuracy; the full 36-section grid
-    stays pinned at f64 in test_golden_suite.py)."""
-    from test_golden_suite import (DNA20_SEQS, _DERIV_LINE, _DERIV_SECTION)
-    from libpll_tpu.ops import derivatives as dv
-
-    golden = _golden("derivatives.out")
-    sections = _DERIV_SECTION.findall(golden)
-    lines = _DERIV_LINE.findall(golden)
-    assert len(lines) == 18 * len(sections)
-    sec = [i for i, (a, c, p) in enumerate(sections)
-           if float(a) == 0.75 and int(c) == 4 and float(p) == 0.0]
-    assert len(sec) == 1
-    rows = {float(t): (float(f), float(d1), float(d2))
-            for tip, t, f, d1, d2 in lines[18 * sec[0]: 18 * sec[0] + 9]
-            if not tip}
-
-    cfg = dict(_DNA, sites=20, seqs=DNA20_SEQS, alpha=0.75,
-               branches_u=[0.1, 0.2, 0.3, 0.4])
-    prog = _Program(**cfg)
-    m = prog.model_u
-    pmx = _pmx(m, 4)
-    clv, scal = _tier_sweep(tier, prog.schedule, prog.tip_clv, pmx, 4, 4)
-
-    pr, cr = prog.schedule.clv_map[6], prog.schedule.clv_map[7]
-    f64 = lambda a: jnp.asarray(np.asarray(a), jnp.float64)
-    cats, states = 4, 4
-    left_pc = f64(jnp.broadcast_to(m["left"][0], (cats, states, states)))
-    right_pc = f64(jnp.broadcast_to(m["right"][0], (cats, states, states)))
-    eig_pc = f64(jnp.broadcast_to(m["eigenvals"][0], (cats, states)))
-    zeros = jnp.zeros((cats, 20), jnp.int32)
-    st = dv.update_sumtable(f64(clv[pr]), f64(clv[cr]), zeros, zeros,
-                            f64(m["freqs_pc"]), left_pc, right_pc)
-    for t, (_, d1_w, d2_w) in rows.items():
-        if t not in (0.1, 0.5, 1.5):
-            continue
-        d1, d2 = dv.likelihood_derivatives(
-            st, t, f64(m["rates"]), f64(m["prop_invar_pc"]),
-            eig_pc, f64(m["freqs_pc"]), f64(m["rate_weights"]),
-            m["invariant"], f64(m["pattern_weights"]),
-            jnp.zeros((20,), jnp.int32), jnp.zeros((20,), jnp.int32),
-            sites=20)
-        np.testing.assert_allclose(float(d1), d1_w, rtol=2e-3, atol=1e-8,
-                                   err_msg=f"d1 t={t} tier={tier}")
-        np.testing.assert_allclose(float(d2), d2_w, rtol=2e-3, atol=1e-8,
-                                   err_msg=f"d2 t={t} tier={tier}")
-
-
-def test_gamma_modes_subset_tiers():
-    """00030 golden: mean- and median-mode Γ rates feed the same tier
-    kernels; inner-inner logL per mode under all three tiers."""
-    from libpll_tpu.utils.constants import (GAMMA_RATES_MEAN,
-                                            GAMMA_RATES_MEDIAN)
-
-    golden = _golden("00030_NMDU_gamma.out")
-    logls = [float(x) for x in
-             _grab_all(r"inner-inner logL: (-?\d+\.\d+)", golden)]
-    for mode, want in zip((GAMMA_RATES_MEAN, GAMMA_RATES_MEDIAN), logls):
-        prog = _Program(**_DNA)
-        rates = compute_gamma_cats(0.5, 4, mode)
-        m = dict(prog.model_u)
-        m["rates"] = jnp.asarray(rates, jnp.float32)
-        for tier in TIERS:
-            pmx = _pmx(m, 4)
-            clv, scal = _tier_sweep(tier, prog.schedule, prog.tip_clv, pmx,
-                                    4, 4)
-            ii, _ = _edge_fold(m, prog.schedule, clv, scal, pmx, 6, 7, 0,
-                               prog.sites)
-            np.testing.assert_allclose(float(ii), want,
-                                       atol=_logl_tol(want),
-                                       err_msg=f"mode={mode} tier={tier}")
+@pytest.mark.parametrize("path", PATHS)
+@_PROGRAMS
+def test_dyn_pattern_tip_score_vs_golden(cfg, golden_name, path,
+                                         monkeypatch):
+    """make_score_unbounded (pattern tips: nibbles for DNA, bitmasks for
+    the wider alphabets, decoded in the score) vs the golden."""
+    built = _use(path, monkeypatch)
+    want = _want(golden_name)
+    topo, model, masks = _program(**cfg)
+    got = float(make_score_unbounded(topo, CATS, cfg["states"], masks)(model))
+    np.testing.assert_allclose(got, want, atol=_logl_tol(want))
+    assert len(built) == (path == "kernel")

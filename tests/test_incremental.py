@@ -221,7 +221,7 @@ def test_peek_index_matches_peek_partial_exactly():
     rng = np.random.default_rng(123)
     for trial in range(6):
         tips = int(rng.integers(8, 40))
-        from test_clv_pallas import _random_tree_newick
+        from libpll_tpu.utils.simulate import random_tree_newick as _random_tree_newick
         tree = ut.parse_newick_string(_random_tree_newick(tips, rng))
         root = tree.root
         trav = ut.traverse(root)
@@ -284,7 +284,7 @@ def test_peek_index_contains_matches_subtree_contains():
     (directed start, target) pair on the base topology."""
     from libpll_tpu.tree import moves
     from libpll_tpu.tree import incremental as inc_mod
-    from test_clv_pallas import _random_tree_newick
+    from libpll_tpu.utils.simulate import random_tree_newick as _random_tree_newick
 
     rng = np.random.default_rng(77)
     for tips in (8, 13, 27):

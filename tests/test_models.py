@@ -150,9 +150,9 @@ def test_heterotachy_per_branch_matrices():
 
 
 def test_lg4m_mixture_fast_score():
-    """LG4M on the Pallas fast path: per-category rate matrices ride the
-    pmatrix C-axis, so the fused (pattern-tip) score supports mixtures by
-    construction — verified against the XLA forward."""
+    """LG4M on the scoring fast path: per-category rate matrices ride the
+    pmatrix C-axis, so the pattern-tip score supports mixtures by
+    construction — verified against the level-sweep forward."""
     import jax.numpy as jnp
 
     from libpll_tpu.engine.evaluate import (make_forward, make_score,
@@ -210,7 +210,6 @@ def test_lg4m_mixture_fast_score():
     scalers = jnp.zeros((topo.schedule.n_inner + 1, sites), jnp.int32)
 
     want, _ = make_forward(topo)(model, clv, scalers)
-    score = make_score(topo, C, S, impl="mxu", tip_encoding="masks",
-                       interpret=True)
+    score = make_score(topo, C, S, tip_encoding="masks")
     got = float(score(model, jnp.asarray(masks.astype(np.int32))))
     np.testing.assert_allclose(got, float(want), rtol=2e-5)

@@ -107,6 +107,31 @@ def test_site_sharded_loglikelihood_matches_single_device():
     assert len(part.clv.sharding.device_set) == n_dev
 
 
+@pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
+def test_shard_partition_allocates_clv_sharded():
+    """On a fresh partition shard_partition allocates no CLV: the tensor
+    is created at its first read already split over the mesh, and the
+    staged tips reach each device as its own shard, so it is never whole
+    on one device.  The values equal a single-device partition's."""
+    mesh = pmesh.make_sites_mesh()
+    sites = pmesh.pad_sites(100, mesh)
+    seqs = ["".join(RNG.choice(list("ACGT-"), sites)) for _ in range(6)]
+
+    def fresh():
+        part = pll.Partition(6, 4, 4, sites, 1, 9, 4, 4)
+        for i, s in enumerate(seqs):
+            part.set_tip_states(i, maps.pll_map_nt, s)
+        return part
+
+    part = fresh()
+    pmesh.shard_partition(part, mesh)
+    assert part._clv is None
+    clv = part.clv
+    assert clv.sharding == pmesh.sharding_for_rank(mesh, 4)
+    assert len(clv.sharding.device_set) == len(jax.devices())
+    np.testing.assert_array_equal(np.asarray(clv), np.asarray(fresh().clv))
+
+
 def test_site_sharded_spr_round_matches_single_device():
     """Tree search on a site-sharded partition: spr_round must run
     unmodified on the mesh (GSPMD partitions the schedule-as-data

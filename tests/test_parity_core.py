@@ -112,7 +112,7 @@ def _random_sequences(n_taxa, sites, alphabet="ACGT-RYKMN"):
 
 def _five_taxon_setup(states, sites, rate_cats, scaling, pinv=0.0,
                       seqs=None, blens=None, asc=None):
-    """Build identical reference and TPU partitions for the classic 5-taxon
+    """Build identical reference and rebuild partitions for the classic 5-taxon
     unrooted topology used throughout the reference tests
     (test/src/00010_NMDU_lkcalc.c:41-204)."""
     params, freqs = _random_model(states)

@@ -1,8 +1,8 @@
-"""Asc-bias and prop-invar on the in-kernel scoring fast paths.
+"""Asc-bias and prop-invar on the scoring fast paths.
 
-The fused edge-score kernel (make_score), the data-driven unbounded scorer
+The score (make_score), the chunked pattern-tip scorer
 (make_score_unbounded) and the sharded scorer must match make_forward — the
-XLA reference path whose asc/+I semantics are oracle-verified — for all
+level-sweep path whose asc/+I semantics are oracle-verified — for all
 three asc flavors and for +I, so tree search never has to leave the fast
 path (reference `src/likelihood.c:321-414`, `src/core_likelihood.c:960-978`).
 """
@@ -14,12 +14,15 @@ import jax
 import jax.numpy as jnp
 
 from libpll_tpu.engine import evaluate as ev
+from libpll_tpu.ops import tipcodes as tc
 from libpll_tpu.ops.likelihood import (ASC_FELSENSTEIN, ASC_LEWIS,
                                        ASC_STAMATAKIS)
 from libpll_tpu.utils.constants import SCALE_PER_RATE, SCALE_PER_SITE
 
-from test_clv_pallas import _caterpillar_newick, _random_tree_newick
-from test_clv_pallas_seg import _build
+from libpll_tpu.utils.simulate import caterpillar_newick as _caterpillar_newick
+from libpll_tpu.utils.simulate import random_tree_newick as _random_tree_newick
+
+from score_cases import PATHS, _build, _use
 
 SITES = 128
 CATS, STATES = 4, 4
@@ -52,13 +55,16 @@ def _asc_clv(clv, states):
     return jnp.asarray(ext)
 
 
+@pytest.mark.parametrize("path", PATHS)
 @pytest.mark.parametrize("asc_mode", [ASC_LEWIS, ASC_FELSENSTEIN,
                                       ASC_STAMATAKIS])
 @pytest.mark.parametrize("newick_fn,tips", [
     (_random_tree_newick, 12),
     (_caterpillar_newick, 24),   # deep chain: nonzero scalers in the tail
 ])
-def test_score_asc_matches_forward(asc_mode, newick_fn, tips):
+def test_score_asc_matches_forward(asc_mode, newick_fn, tips, path,
+                                   monkeypatch):
+    built = _use(path, monkeypatch)
     rng = np.random.default_rng(tips + asc_mode)
     newick = (newick_fn(tips, rng) if newick_fn is _random_tree_newick
               else newick_fn(tips))
@@ -75,27 +81,26 @@ def test_score_asc_matches_forward(asc_mode, newick_fn, tips):
                          jnp.int32)
     want, _ = fwd(fwd_model, clv_fwd, scal_fwd)
 
-    # fused score kernel + asc tail
-    from libpll_tpu.ops import clv_pallas as cp
-    score = ev.make_score(topo_asc, CATS, STATES, impl="vpu",
-                          interpret=True)
-    tips_packed = cp.pack_tips(clv[:topo.schedule.tips], "vpu")
-    got = score(sc_model, tips_packed)
+    # score + asc tail
+    score = ev.make_score(topo_asc, CATS, STATES)
+    got = score(sc_model, clv[:topo.schedule.tips])
     np.testing.assert_allclose(float(got), float(want), rtol=2e-6)
 
-    # data-driven unbounded scorer (pattern-tip) + asc tail
-    clv_np = np.asarray(clv[:topo.schedule.tips])
-    masks = ((clv_np[:, 0] > 0).astype(np.uint32)
-             << np.arange(STATES, dtype=np.uint32)[None, :, None]).sum(1)
-    score_u = ev.make_score_unbounded(topo_asc, CATS, STATES, masks,
-                                      interpret=True)
+    # chunked pattern-tip scorer + asc tail
+    masks = tc.tip_masks_from_clv(clv[:topo.schedule.tips])
+    score_u = ev.make_score_unbounded(topo_asc, CATS, STATES, masks)
     got_u = score_u(sc_model)
     np.testing.assert_allclose(float(got_u), float(want), rtol=2e-6)
+    assert len(built) == 2 * (path == "kernel")
 
 
-@pytest.mark.parametrize("scale_mode", [SCALE_PER_SITE, SCALE_PER_RATE])
-def test_score_pinv_matches_forward(scale_mode):
-    """+I on the fast paths: linear in-kernel fold vs the XLA mix."""
+@pytest.mark.parametrize("path,scale_mode", [
+    ("xla", SCALE_PER_SITE), ("xla", SCALE_PER_RATE),
+    ("kernel", SCALE_PER_SITE)])
+def test_score_pinv_matches_forward(path, scale_mode, monkeypatch):
+    """+I on the fast paths: the score and the chunked pattern-tip
+    scorer vs the forward's invariant-site mix."""
+    _use(path, monkeypatch)
     rng = np.random.default_rng(7)
     newick = _random_tree_newick(12, rng)
     topo, model, pmatrix, clv, scalers = _build(newick, sites=SITES,
@@ -120,31 +125,27 @@ def test_score_pinv_matches_forward(scale_mode):
     fwd = ev.make_forward(topo)
     want, _ = fwd(model, clv, scalers)
 
-    if scale_mode == SCALE_PER_SITE:
-        from libpll_tpu.ops import clv_pallas as cp
-        score = ev.make_score(topo, CATS, STATES, impl="vpu",
-                              use_pinv=True, interpret=True)
-        got = score(model, cp.pack_tips(clv[:tips], "vpu"))
-        np.testing.assert_allclose(float(got), float(want), rtol=2e-6)
+    score = ev.make_score(topo, CATS, STATES, use_pinv=True)
+    got = score(model, clv[:tips])
+    np.testing.assert_allclose(float(got), float(want), rtol=2e-6)
 
-    clv_t = np.asarray(clv[:tips])
-    masks = ((clv_t[:, 0] > 0).astype(np.uint32)
-             << np.arange(STATES, dtype=np.uint32)[None, :, None]).sum(1)
+    masks = tc.tip_masks_from_clv(clv[:tips])
     score_u = ev.make_score_unbounded(topo, CATS, STATES, masks,
-                                      use_pinv=True, interpret=True)
+                                      use_pinv=True)
     got_u = score_u(model)
     np.testing.assert_allclose(float(got_u), float(want), rtol=2e-6)
 
 
-def test_score_sharded_asc_pinv():
-    """Sharded fused scorer with +I, and with asc (replicated tail), on the
-    virtual CPU mesh (interpret-mode kernel)."""
+@pytest.mark.parametrize("path", PATHS)
+def test_score_sharded_asc_pinv(path, monkeypatch):
+    """Sharded scorer with +I on the virtual CPU mesh."""
     from jax.sharding import Mesh
 
     devs = np.asarray(jax.devices()[:4])
     if devs.size < 4:
         pytest.skip("needs 4 virtual devices")
     mesh = Mesh(devs, ("sites",))
+    built = _use(path, monkeypatch)
 
     rng = np.random.default_rng(3)
     newick = _random_tree_newick(10, rng)
@@ -167,8 +168,7 @@ def test_score_sharded_asc_pinv():
     fwd = ev.make_forward(topo)
     want, _ = fwd(model, clv, scalers)
 
-    from libpll_tpu.ops import clv_pallas as cp
-    score = ev.make_score_sharded(topo, CATS, STATES, mesh, impl="vpu",
-                                  use_pinv=True, interpret=True)
-    got = score(model, cp.pack_tips(clv[:tips], "vpu"))
+    score = ev.make_score_sharded(topo, CATS, STATES, mesh, use_pinv=True)
+    got = score(model, clv[:tips])
     np.testing.assert_allclose(float(got), float(want), rtol=2e-6)
+    assert len(built) == (path == "kernel")
